@@ -31,8 +31,6 @@ analytic_flops_per_solve) and the achieved TFLOP/s at the reported rate.
 Env knobs: QTPU_BENCH_BATCH (default 32768 chunked / 1024 monolithic),
 QTPU_BENCH_CHUNK (default 256; 0 = monolithic graph — chunking is
 scheduling only, outputs agree to reassociation roundoff),
-QTPU_BENCH_FUSED=1 to route the
-ADMM loop through the fused Pallas kernel (solvers/pallas_admm.py),
 QTPU_BENCH_TABLE=stance for the legacy all-stance table,
 QTPU_BENCH_MOVE_BLOCK="6,2" to bench the move-blocked condensed system
 (solvers/condense.py move_block_groups; parity-gated in
@@ -40,6 +38,8 @@ tests/test_golden_parity.py), QTPU_BENCH_H=16 for the long-horizon
 move-blocked configuration (auto-selects the H=16-tuned solver settings;
 parity-gated by tests/test_golden_parity.py::test_long_horizon_*),
 QTPU_BENCH_RUNS (default 5 timing runs for the variance band).
+
+    python bench.py        # on the GPU; one JAX process per card
 """
 
 from __future__ import annotations
@@ -50,64 +50,82 @@ import time
 
 import jax
 
-# Persistent compile cache: the TPU remote-compile of the solve graph is
-# minutes; cache so repeated bench runs start warm.
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("QTPU_CACHE", "/tmp/tpu_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from quadruped_jax.utils import compile_cache  # noqa: E402
 
-import jax.numpy as jnp
-import numpy as np
+compile_cache.enable()
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from quadruped_jax.solvers import cone_qp  # noqa: E402
 
 HORIZON = int(os.environ.get("QTPU_BENCH_H", "10"))
 # Newton-Schulz precision ablation: trailing f32 polish steps out of the
-# 11 NS iterations (the rest run bf16 — the production default is 1,
-# load-bearing for the parity gates; 11 = all-f32 for the ablation line).
-NS_F32_POLISH = int(os.environ.get("QTPU_BENCH_NS_POLISH", "1"))
+# 11 NS iterations (the rest run bf16 — the production default is
+# cone_qp.NS_F32_POLISH; 11 = all-f32 for the ablation line).
+NS_F32_POLISH = int(os.environ.get("QTPU_BENCH_NS_POLISH",
+                                   cone_qp.NS_F32_POLISH))
 # Cross-cadence M^{-1} reuse (cone_qp.InverseCarry): rescale + pinned-row
 # Woodbury + short NS polish replaces the cold 11-iteration inverse on
 # the warm path — parity-gated (tests/test_minv_reuse.py + the chained
-# cadence gates) but DEFAULT OFF: measured on TPU the inverse is
-# HBM-bound, not FLOP-bound, so the 2.4x FLOP saving does not buy time
-# in XLA form (seeded 5.6 ms vs cold 4.4 ms at B=1024 — the Woodbury/
-# rescale stages stream the same [B, n, n] tensors the saved NS
-# iterations would have; a documented negative result, STATUS.md; the
-# win requires a VMEM-resident kernel). QTPU_BENCH_MINV_REUSE=1 times
-# the reuse path.
+# cadence gates) but DEFAULT OFF: the 2.4x FLOP saving buys time only if
+# the inverse is FLOP-bound (the Woodbury/rescale stages stream the same
+# [B, n, n] tensors the saved NS iterations would have).
+# QTPU_BENCH_MINV_REUSE=1 times the reuse path.
 MINV_REUSE = os.environ.get("QTPU_BENCH_MINV_REUSE", "0") == "1"
 # Batch chunking: run the batch as `batch/chunk` sequential lax.map
 # chunks inside ONE jit. Scheduling only — the math per element is the
-# same program, and measured chunked-vs-monolithic outputs agree to
+# same program, and chunked-vs-monolithic outputs agree to
 # reassociation-level roundoff (<= 3e-4 N on forces, vs the ~3.8 N
-# parity gates), so the golden-parity claims carry over — but
-# throughput is dramatically better at large batches: XLA pipelines the
-# chunks and avoids the super-linear slowdown the monolithic graph hits
-# past B~1024 (measured on TPU: 180.5k solves/s at the old B=1024
-# monolithic optimum -> 282.5k at B=8192/chunk=256, 285.6k at the
-# B=32768 default; unchunked B=4096 is 105.5k). 0 disables (the
-# monolithic graph).
+# parity gates; tests/test_bench_chunking.py), so the golden-parity
+# claims carry over. Chunking was tuned on an earlier accelerator, where
+# large monolithic batches scheduled badly; whether it pays on the GPU
+# is to be measured. 0 disables (the monolithic graph).
 CHUNK = int(os.environ.get("QTPU_BENCH_CHUNK", "256"))
 DT_MPC = 0.03
 CADENCE_S = 0.015   # MPC re-solves every 15 ticks at 1 kHz
 TARGET = 100_000.0
 
 
+def chunked(fn, batch: int, chunk: int):
+    """jit(fn) over arrays with a leading batch axis, run as batch/chunk
+    sequential lax.map chunks when chunk divides batch (else one graph)."""
+    if not (chunk > 0 and batch % chunk == 0 and batch > chunk):
+        return jax.jit(fn)
+    n_chunks = batch // chunk
+
+    def fn_chunked(*args):
+        rs = lambda a: a.reshape((n_chunks, chunk) + a.shape[1:])
+        out = jax.lax.map(lambda ch: fn(*ch), jax.tree.map(rs, args))
+        # Restore batch-major layout so consumers see the same [batch, ...]
+        # shapes as the monolithic graph.
+        return jax.tree.map(
+            lambda a: a.reshape((batch,) + a.shape[2:]), out)
+
+    return jax.jit(fn_chunked)
+
+
 def make_states(batch: int, t: float, rng):
     """Batched robot states for the cadence step at time t: the same
-    random scenario ensemble advanced by the commanded motion."""
-    rpy = (rng.normal(size=(batch, 3)) * 0.1
-           + np.array([0.0, 0.0, 0.0])).astype(np.float32)
-    feet = (rng.normal(size=(batch, 4, 3)) * 0.05
+    random scenario ensemble advanced by the commanded motion.
+
+    Each array draws from its own stream, so the first k scenarios are the
+    same whatever the batch size (a small reference run can re-solve a
+    prefix of a large batch)."""
+    rng_rpy, rng_feet, rng_x = (np.random.default_rng(s)
+                                for s in rng.integers(0, 2 ** 31, size=3))
+    rpy = (rng_rpy.normal(size=(batch, 3)) * 0.1).astype(np.float32)
+    feet = (rng_feet.normal(size=(batch, 4, 3)) * 0.05
             + np.array([[0.17, -0.13, -0.28], [0.17, 0.13, -0.28],
                         [-0.17, -0.13, -0.28], [-0.17, 0.13, -0.28]])
             + 0.02 * np.sin(5 * t)).astype(np.float32)
     # 13th SRB state = the gravity constant (srb.GRAVITY) — without it
     # the QP's optimum is near-zero forces and the problem is not the
     # production one (timing is data-independent, honesty is not).
-    from quadruped_tpu.dynamics import srb as _srb
+    from quadruped_jax.dynamics import srb as _srb
 
     x0 = np.concatenate(
-        [rng.normal(size=(batch, 12)) * 0.05,
+        [rng_x.normal(size=(batch, 12)) * 0.05,
          _srb.GRAVITY * np.ones((batch, 1))],
         1).astype(np.float32)
     x0[:, 3] += 0.4 * t        # commanded forward progress
@@ -128,7 +146,55 @@ def trot_table(batch: int, t: float, rng, horizon: int | None = None):
     return table.astype(np.float32)
 
 
-def build_bench(batch: int, fused, table_kind: str, move_block=(),
+# MPC state weights of the bench problem (13-state SRB order).
+WEIGHTS = (10, 10, 5, 40, 60, 100, 0, 0, 0.5, 5, 5, 1, 0.0)
+
+
+def bench_config(horizon: int, move_block=()):
+    """The production MpcConfig at this horizon."""
+    from quadruped_jax.control.mpc import MpcConfig, long_horizon_config
+
+    if horizon >= 12:
+        # The tuned long-horizon production configuration (move blocking
+        # + the 1e-4 force regularizer — see control/mpc.py
+        # long_horizon_config for the measured rationale).
+        return long_horizon_config(horizon=horizon,
+                                   move_block=tuple(move_block))
+    return MpcConfig(horizon=horizon, move_block=tuple(move_block))
+
+
+def mpc_problem(cfg, params, rpy, feet, x0, contact):
+    """The condensed MPC QP of one cadence step, batched: desired
+    trajectory (the commanded twist integrated over the horizon from the
+    current state, UpdateMPC :361-376), SRB matrices + exact ZOH,
+    condensation, cone bounds from the contact table (+ move blocking)."""
+    from quadruped_jax.core import se3
+    from quadruped_jax.dynamics import srb
+    from quadruped_jax.solvers import condense
+
+    h = cfg.horizon
+    r = se3.rpy_to_rotmat(rpy)
+    k = jnp.arange(h, dtype=jnp.float32)[:, None]
+    drift = jnp.zeros((13,), jnp.float32).at[3].set(0.4 * DT_MPC)
+    x_des = x0[:, None, :] + k[None] * drift[None, None, :]
+    x_des = x_des.at[..., 9].set(0.4)
+
+    a, b = srb.srb_continuous(r, params.total_inertia,
+                              params.total_mass, feet)
+    ad, bd = srb.srb_discretize(a, b, DT_MPC)
+    p, q = condense.condense_cost_structured(
+        a, bd, ad, x0, x_des, jnp.asarray(WEIGHTS, jnp.float32),
+        cfg.force_weight, h, DT_MPC)
+    fz_hi = (contact * params.max_force).reshape(contact.shape[0], h * 4)
+    if cfg.move_block:
+        groups, n_g = condense.move_block_groups(h, *cfg.move_block)
+        p, q, fz_hi = condense.reduce_move_blocking(p, q, fz_hi, groups,
+                                                    n_g, h)
+    return cone_qp.ConeQP(p=p, q=q, mu=jnp.asarray(0.45, jnp.float32),
+                          fz_lo=jnp.zeros_like(fz_hi), fz_hi=fz_hi)
+
+
+def build_bench(batch: int, table_kind: str = "trot", move_block=(),
                 horizon: int | None = None, chunk: int | None = None,
                 ns_f32_polish: int | None = None,
                 minv_reuse: bool | None = None):
@@ -136,171 +202,74 @@ def build_bench(batch: int, fused, table_kind: str, move_block=(),
 
     The keyword defaults read the module-level env knobs, so bench.py's
     CLI behavior is unchanged; benchmarks/scaling_report.py passes them
-    explicitly so the scaling artifact times EXACTLY this program
-    (VERDICT r4: the scaling harness must not drift from the headline).
+    explicitly so the scaling artifact times EXACTLY this program.
+    Returns (fn, args, cfg); fn(*args) -> (x, y) of the warm solve.
     """
-    HORIZON = horizon if horizon is not None else globals()["HORIZON"]
-    CHUNK = chunk if chunk is not None else globals()["CHUNK"]
-    NS_F32_POLISH = (ns_f32_polish if ns_f32_polish is not None
-                     else globals()["NS_F32_POLISH"])
-    MINV_REUSE = (minv_reuse if minv_reuse is not None
-                  else globals()["MINV_REUSE"])
-    from quadruped_tpu.control.mpc import (MpcConfig, gravity_warm_start,
-                                           long_horizon_config)
-    from quadruped_tpu.core import se3
-    from quadruped_tpu.dynamics import srb
-    from quadruped_tpu.robots import a1_params
-    from quadruped_tpu.solvers import condense, cone_qp
+    horizon = HORIZON if horizon is None else horizon
+    chunk = CHUNK if chunk is None else chunk
+    ns_f32_polish = NS_F32_POLISH if ns_f32_polish is None else ns_f32_polish
+    minv_reuse = MINV_REUSE if minv_reuse is None else minv_reuse
+    from quadruped_jax.control.mpc import gravity_warm_start
+    from quadruped_jax.robots import a1_params
 
-    if HORIZON >= 12:
-        # The tuned long-horizon production configuration (move blocking
-        # + the 1e-4 force regularizer — see control/mpc.py
-        # long_horizon_config for the measured rationale).
-        cfg = long_horizon_config(horizon=HORIZON,
-                                  move_block=tuple(move_block))
-    else:
-        cfg = MpcConfig(horizon=HORIZON, move_block=tuple(move_block))
-    if cfg.move_block:
-        groups, n_g = condense.move_block_groups(HORIZON, *cfg.move_block)
+    cfg = bench_config(horizon, move_block)
     params = a1_params()
-    weights = jnp.asarray([10, 10, 5, 40, 60, 100, 0, 0, 0.5, 5, 5, 1, 0.0],
-                          jnp.float32)
-    rng = np.random.default_rng(0)
 
     def full(rpy, feet, x0, contact, x_warm, y_warm, pin_prev, inv_carry):
-        """One full MPC update: trajectory build + SRB + ZOH + condense +
-        cone build + warm-started production solve, incl. the deployed
-        flip-aware warm-start shift (cone_qp.shift_warm_start, unblocked
-        horizons) and — when MINV_REUSE — the cross-cadence M^{-1}
-        reuse (rescale + pinned-row Woodbury + short NS polish)."""
-        r = se3.rpy_to_rotmat(rpy)
-        # Desired trajectory: integrate the commanded twist over the
-        # horizon from the current state (UpdateMPC :361-376) — inside
-        # the timed jit.
-        k = jnp.arange(HORIZON, dtype=jnp.float32)[:, None]
-        drift = jnp.zeros((13,), jnp.float32).at[3].set(0.4 * DT_MPC)
-        x_des = x0[:, None, :] + k[None] * drift[None, None, :]
-        x_des = x_des.at[..., 9].set(0.4)
-
-        a, b = srb.srb_continuous(r, params.total_inertia,
-                                  params.total_mass, feet)
-        ad, bd = srb.srb_discretize(a, b, DT_MPC)
-        p, q = condense.condense_cost_structured(
-            a, bd, ad, x0, x_des, weights, cfg.force_weight, HORIZON, DT_MPC)
-        fz_hi = (contact * params.max_force).reshape(contact.shape[0], HORIZON * 4)
-        if cfg.move_block:
-            p, q, fz_hi = condense.reduce_move_blocking(
-                p, q, fz_hi, groups, n_g, HORIZON)
-        prob = cone_qp.ConeQP(p=p, q=q, mu=jnp.asarray(0.45, jnp.float32),
-                              fz_lo=jnp.zeros_like(fz_hi), fz_hi=fz_hi)
+        """One full MPC update: problem build + warm-started production
+        solve, incl. the flip-aware warm-start shift when the config
+        turns it on (cone_qp.shift_warm_start, unblocked horizons) and —
+        when minv_reuse — the cross-cadence M^{-1} reuse."""
+        prob = mpc_problem(cfg, params, rpy, feet, x0, contact)
         if cfg.qp_warm_shift and not cfg.move_block:
             # Flip-aware warm-start shift — OFF by default (a measured
             # worst-case/typical trade-off, see MpcConfig.qp_warm_shift).
-            pin_new = (fz_hi < 1e-6).astype(jnp.float32)
+            pin_new = (prob.fz_hi < 1e-6).astype(jnp.float32)
             x_warm, y_warm = cone_qp.shift_warm_start(x_warm, y_warm,
                                                       pin_prev, pin_new)
-        if fused == "full":
-            # Production solver semantics (Fast-ADMM restart 20, alpha 1)
-            # inside the VMEM-resident kernel — same scheme the XLA
-            # headline path runs, so the comparison is apples-to-apples.
-            sol = cone_qp.solve_fused_full(
-                prob, iters=cfg.qp_iters, alpha=cfg.qp_alpha,
-                accel_restart=cfg.qp_accel_restart,
-                ns_f32_polish=NS_F32_POLISH,
-                x0=x_warm, y0=y_warm,
-                tile=int(os.environ.get("QTPU_BENCH_FUSED_TILE", "16")))
-        elif fused == "loop":
-            sol = cone_qp.solve_fused(
-                prob, iters=cfg.qp_iters, alpha=cfg.qp_alpha,
-                accel_restart=cfg.qp_accel_restart,
-                ns_f32_polish=NS_F32_POLISH,
-                x0=x_warm, y0=y_warm,
-                tile=int(os.environ.get("QTPU_BENCH_FUSED_TILE", "64")))
-        elif MINV_REUSE:
-            sol, carry = cone_qp.solve(
-                prob, iters=cfg.qp_iters, alpha=cfg.qp_alpha,
-                accel_restart=cfg.qp_accel_restart,
-                ns_f32_polish=NS_F32_POLISH,
-                inv_carry=inv_carry, return_inv_carry=True,
-                x0=x_warm, y0=y_warm)
+        kw = dict(iters=cfg.qp_iters, alpha=cfg.qp_alpha,
+                  accel_restart=cfg.qp_accel_restart,
+                  ns_f32_polish=ns_f32_polish, x0=x_warm, y0=y_warm)
+        if minv_reuse:
+            sol, carry = cone_qp.solve(prob, inv_carry=inv_carry,
+                                       return_inv_carry=True, **kw)
             return sol.x, sol.y, carry
-        else:
-            # Default path: no carry in OR out — materializing the
-            # unused [B, n, n] inverse as an output costs ~5% (measured).
-            sol = cone_qp.solve(prob, iters=cfg.qp_iters,
-                                alpha=cfg.qp_alpha,
-                                accel_restart=cfg.qp_accel_restart,
-                                ns_f32_polish=NS_F32_POLISH,
-                                x0=x_warm, y0=y_warm)
+        # Default path: no carry in OR out — materializing the unused
+        # [B, n, n] inverse as an output costs time.
+        sol = cone_qp.solve(prob, **kw)
         return sol.x, sol.y
 
-    # Chunking applies to the fused kernels too: the pallas grid already
-    # self-chunks the SOLVE, but the host-side XLA prep (equilibration,
-    # M assembly, padding) would otherwise run as one monolithic graph
-    # and hit the super-linear scheduling cliff past B~1024.
-    if CHUNK > 0 and batch % CHUNK == 0 and batch > CHUNK:
-        n_chunks = batch // CHUNK
+    fn = chunked(full, batch, chunk)
 
-        def fn_chunked(*args):
-            rs = lambda a: a.reshape((n_chunks, CHUNK) + a.shape[1:])
-            out = jax.lax.map(lambda ch: full(*ch),
-                              jax.tree.map(rs, args))
-            # Restore batch-major layout so consumers of the bench fn see
-            # the same [batch, ...] shapes as the monolithic graph.
-            return jax.tree.map(
-                lambda a: a.reshape((n_chunks * CHUNK,) + a.shape[2:]), out)
+    def tables(t):
+        if table_kind == "trot":
+            return trot_table(batch, t, np.random.default_rng(1), horizon)
+        return np.ones((batch, horizon, 4), np.float32)
 
-        fn = jax.jit(fn_chunked)
-    else:
-        fn = jax.jit(full)
+    def cold(rpy, feet, x0, contact):
+        prob = mpc_problem(cfg, params, rpy, feet, x0, contact)
+        grav_table = contact
+        if cfg.move_block:
+            grav_table = (prob.fz_hi > 0).astype(jnp.float32) \
+                .reshape(batch, -1, 4)
+        sol, carry = cone_qp.solve(prob, iters=cfg.qp_cold_iters,
+                                   alpha=cfg.qp_cold_alpha,
+                                   return_inv_carry=True,
+                                   x0=gravity_warm_start(params, grav_table))
+        return sol.x, sol.y, (prob.fz_hi < 1e-6).astype(jnp.float32), carry
 
     # --- untimed boot: cold solve on the PREVIOUS cadence step, exactly
     # what mpc_cold_start does once per rollout.
     t_prev, t_now = 0.0, CADENCE_S
     rpy_p, feet_p, x0_p = make_states(batch, t_prev,
                                       np.random.default_rng(0))
-    table_p = (trot_table(batch, t_prev, np.random.default_rng(1), HORIZON)
-               if table_kind == "trot"
-               else np.ones((batch, HORIZON, 4), np.float32))
-
-    def cold(rpy, feet, x0, contact):
-        r = se3.rpy_to_rotmat(rpy)
-        k = jnp.arange(HORIZON, dtype=jnp.float32)[:, None]
-        drift = jnp.zeros((13,), jnp.float32).at[3].set(0.4 * DT_MPC)
-        x_des = (x0[:, None, :] + k[None] * drift[None, None, :])
-        x_des = x_des.at[..., 9].set(0.4)
-        a, b = srb.srb_continuous(r, params.total_inertia,
-                                  params.total_mass, feet)
-        ad, bd = srb.srb_discretize(a, b, DT_MPC)
-        p, q = condense.condense_cost_structured(
-            a, bd, ad, x0, x_des, weights, cfg.force_weight, HORIZON, DT_MPC)
-        fz_hi = (contact * params.max_force).reshape(batch, HORIZON * 4)
-        if cfg.move_block:
-            p, q, fz_hi = condense.reduce_move_blocking(
-                p, q, fz_hi, groups, n_g, HORIZON)
-        prob = cone_qp.ConeQP(p=p, q=q, mu=jnp.asarray(0.45, jnp.float32),
-                              fz_lo=jnp.zeros_like(fz_hi), fz_hi=fz_hi)
-        grav_table = jnp.asarray(contact)
-        if cfg.move_block:
-            grav_table = (fz_hi > 0).astype(jnp.float32) \
-                .reshape(batch, n_g, 4)
-        sol, carry = cone_qp.solve(prob, iters=cfg.qp_cold_iters,
-                                   alpha=cfg.qp_cold_alpha,
-                                   return_inv_carry=True,
-                                   x0=gravity_warm_start(params, grav_table))
-        return sol.x, sol.y, (fz_hi < 1e-6).astype(jnp.float32), carry
-
-    x_warm, y_warm, pin_prev, inv_carry = jax.jit(cold)(rpy_p, feet_p,
-                                                        x0_p, table_p)
+    x_warm, y_warm, pin_prev, inv_carry = jax.jit(cold)(
+        rpy_p, feet_p, x0_p, jnp.asarray(tables(t_prev)))
 
     # --- timed step: the NEXT cadence problem, warm-started.
-    rng2 = np.random.default_rng(0)
-    rpy, feet, x0 = make_states(batch, t_now, rng2)
-    table = (trot_table(batch, t_now, np.random.default_rng(1), HORIZON)
-             if table_kind == "trot"
-             else np.ones((batch, HORIZON, 4), np.float32))
+    rpy, feet, x0 = make_states(batch, t_now, np.random.default_rng(0))
     args = (jnp.asarray(rpy), jnp.asarray(feet), jnp.asarray(x0),
-            jnp.asarray(table), x_warm, y_warm, pin_prev, inv_carry)
+            jnp.asarray(tables(t_now)), x_warm, y_warm, pin_prev, inv_carry)
     return fn, args, cfg
 
 
@@ -318,10 +287,8 @@ def analytic_flops_per_solve(cfg) -> float:
     numbers are reported, but achieved_tflops uses this analytic count.
 
     Terms: Newton-Schulz inverse (NS_ITERS x 2 matmuls of [n, n], the
-    ~85% majority), ADMM iterations (matvec + cone applies), M assembly,
+    large majority), ADMM iterations (matvec + cone applies), M assembly,
     structured condensation, equilibration passes."""
-    from quadruped_tpu.solvers import cone_qp as _cq
-
     g = cfg.n_force_groups
     n = 12 * g
     t = 4 * g
@@ -333,7 +300,7 @@ def analytic_flops_per_solve(cfg) -> float:
         ns_matmuls = 3 + 2 * (4 - 1) + 2 * 1
         ns = ns_matmuls * 2 * n ** 3 + 2 * n * n * t + t ** 3 + 2 * n * n
     else:
-        ns = _cq.NS_ITERS * 2 * 2 * n ** 3
+        ns = cone_qp.NS_ITERS * 2 * 2 * n ** 3
     admm = cfg.qp_iters * (2 * n * n + 2 * 2 * t * 5 * 3)
     m_assembly = 2 * n * n
     cond = 2 * 4 * h * h * 144 + 4 * 2 * 144 * 13
@@ -341,7 +308,7 @@ def analytic_flops_per_solve(cfg) -> float:
     return float(ns + admm + m_assembly + cond + equil)
 
 
-def measure(batch: int, fused, table_kind: str, move_block=(),
+def measure(batch: int, table_kind: str = "trot", move_block=(),
             reps: int = 20, runs: int = 5, horizon: int | None = None,
             chunk: int | None = None):
     """Returns (median rate, [min, max] band, flops (xla, analytic), cfg).
@@ -350,7 +317,7 @@ def measure(batch: int, fused, table_kind: str, move_block=(),
     the full MPC update (trajectory + SRB + ZOH + condensation + cone
     build + solve) — but see analytic_flops_per_solve for why it
     under-counts scanned loops; achieved TFLOP/s = rate * analytic."""
-    fn, args, cfg = build_bench(batch, fused, table_kind, move_block,
+    fn, args, cfg = build_bench(batch, table_kind, move_block,
                                 horizon=horizon, chunk=chunk)
     compiled = fn.lower(*args).compile()
     try:
@@ -373,18 +340,11 @@ def measure(batch: int, fused, table_kind: str, move_block=(),
 
 
 def main():
-    platform = jax.devices()[0].platform
-    # Default batch: 32768 with chunking — the measured top of the
-    # chunked plateau (same-day, chunk 256: 278.5k @ 8192, 282.6k @
-    # 16384, 285.6k @ 32768; 65536 exhausts HBM — the warm-start carry
-    # alone is [B, 120, 120]). 1024 for the monolithic graph (ITS
-    # measured optimum — larger unchunked batches hit a super-linear XLA
-    # slowdown, see CHUNK).
+    dev = jax.devices()[0]
+    # Default batch: 32768 with chunking (the warm-start carry alone is
+    # [B, 120, 120]); 1024 for the monolithic graph.
     batch = int(os.environ.get("QTPU_BENCH_BATCH",
                                "32768" if CHUNK > 0 else "1024"))
-    fused = os.environ.get("QTPU_BENCH_FUSED", "0")
-    fused = {"0": False, "1": "loop", "loop": "loop",
-             "full": "full"}.get(fused, False)
     table_kind = os.environ.get("QTPU_BENCH_TABLE", "trot")
     mb_env = os.environ.get("QTPU_BENCH_MOVE_BLOCK", "")
     if mb_env == "none":
@@ -394,27 +354,26 @@ def main():
     elif HORIZON >= 12:
         # Long-horizon default: the move-blocked configuration is the one
         # parity-gated at H=16 (long_horizon_config — head 4 + tail
-        # pairs, 120 vars = one MXU tile).
-        from quadruped_tpu.control.mpc import long_horizon_config as _lh
+        # pairs, 120 variables).
+        from quadruped_jax.control.mpc import long_horizon_config as _lh
 
         move_block = _lh().move_block
     else:
         move_block = ()
     runs = int(os.environ.get("QTPU_BENCH_RUNS", "5"))
     rate, band, (flops_xla, flops_analytic), cfg = measure(
-        batch, fused, table_kind, move_block, runs=runs)
+        batch, table_kind, move_block, runs=runs)
     mb_tag = (f", moveblock{cfg.move_block}" if cfg.move_block else "")
-    if NS_F32_POLISH != 1:
+    if NS_F32_POLISH != cone_qp.NS_F32_POLISH:
         mb_tag += f", ns_f32_polish={NS_F32_POLISH}"
-    if MINV_REUSE and not fused:
+    if MINV_REUSE:
         mb_tag += ", minv_reuse"
     if CHUNK > 0 and batch % CHUNK == 0 and batch > CHUNK:
         mb_tag += f", chunk{CHUNK}"
     print(json.dumps({
         "metric": f"MPC solves/s/chip (H={HORIZON}, full build+solve, "
                   f"qp_iters={cfg.qp_iters} warm@cadence, {table_kind} "
-                  f"table{mb_tag}, batch={batch}, "
-                  f"{fused if fused else 'xla'}, {platform})",
+                  f"table{mb_tag}, batch={batch})",
         "value": round(rate, 1),
         "unit": "solves/s",
         "vs_baseline": round(rate / TARGET, 4),
@@ -424,6 +383,8 @@ def main():
         "flops_per_solve": round(flops_analytic, 1),
         "flops_per_solve_xla": round(flops_xla, 1),
         "achieved_tflops": round(rate * flops_analytic / 1e12, 3),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
     }))
 
 

@@ -24,19 +24,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("QTPU_CACHE", "/tmp/tpu_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from quadruped_jax.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import mpc as mpc_mod, swing as swing_mod
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.control.locomotion import LocomotionConfig
-from quadruped_tpu.gait import ADVANCED_TROT
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim.rollout_cadenced import rollout_cadenced
+import bench
+from quadruped_jax.control import mpc as mpc_mod, swing as swing_mod
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.control.locomotion import LocomotionConfig
+from quadruped_jax.gait import ADVANCED_TROT
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim.rollout_cadenced import rollout_cadenced
 
 N_PERIODS = 18
 
@@ -56,22 +57,10 @@ def build(batch: int):
                                n_periods=N_PERIODS)
         return res.alive, res.sim.position
 
-    # Batch chunking (same finding as bench.py CHUNK): lax.map over
-    # vmapped chunks dodges XLA's super-linear slowdown on big
-    # monolithic batches. 0 = monolithic vmap.
+    # Batch chunking (same schedule as bench.py CHUNK): lax.map over
+    # vmapped chunks. 0 = monolithic vmap.
     chunk = int(os.environ.get("QTPU_BENCH_CHUNK", "256"))
-    if chunk > 0 and batch % chunk == 0 and batch > chunk:
-        n_chunks = batch // chunk
-
-        def fn(vx, wz):
-            rs = lambda a: a.reshape((n_chunks, chunk) + a.shape[1:])
-            out = jax.lax.map(lambda ch: jax.vmap(one)(*ch),
-                              (rs(vx), rs(wz)))
-            return jax.tree.map(lambda a: a.reshape((batch,) + a.shape[2:]),
-                                out)
-
-        return jax.jit(fn), (vx, wz)
-    return jax.jit(jax.vmap(one)), (vx, wz)
+    return bench.chunked(jax.vmap(one), batch, chunk), (vx, wz)
 
 
 def main():

@@ -27,21 +27,21 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("QTPU_CACHE", "/tmp/tpu_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from quadruped_jax.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import stance_force_balance as stance_fb
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.control.walk_locomotion import (WalkConfig, walk_init,
+from quadruped_jax.control import stance_force_balance as stance_fb
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.control.walk_locomotion import (WalkConfig, walk_init,
                                                    walk_step)
-from quadruped_tpu.dynamics import floating_base as fb
-from quadruped_tpu.gait.scheduler import _config
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim import whole_body as wb
+from quadruped_jax.dynamics import floating_base as fb
+from quadruped_jax.gait.scheduler import _config
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim import whole_body as wb
 
 DT = 0.002
 STEPS = 500   # 1 s of sim per timed call

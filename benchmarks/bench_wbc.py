@@ -21,17 +21,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("QTPU_CACHE", "/tmp/tpu_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from quadruped_jax.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.dynamics import floating_base as fb
-from quadruped_tpu.control import wbc
-from quadruped_tpu.control.types import RobotObservation
+from quadruped_jax.robots import a1_params
+from quadruped_jax.dynamics import floating_base as fb
+from quadruped_jax.control import wbc
+from quadruped_jax.control.types import RobotObservation
 
 
 def build(batch: int):

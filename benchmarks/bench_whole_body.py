@@ -3,7 +3,7 @@
 The SRB rollout (bench_rollout.py) is the speed-of-light scenario-sweep
 engine; this measures the FULL-fidelity path — batched 18-DoF
 Featherstone forward dynamics + Hunt-Crossley contact + hybrid motor law
-+ the same advanced-trot MPC controller — the TPU replacement for one
++ the same advanced-trot MPC controller — the batched replacement for one
 Gazebo instance per robot (simulation/qr_gazebo; Gazebo targets
 real-time factor ~1.0 for ONE robot at real_time_update_rate 1000).
 ticks/s / 500 = simulated robot-seconds per wall second = "how many
@@ -23,22 +23,23 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("QTPU_CACHE", "/tmp/tpu_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from quadruped_jax.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import mpc as mpc_mod, swing as swing_mod
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.control.locomotion import (LocomotionConfig,
+import bench
+from quadruped_jax.control import mpc as mpc_mod, swing as swing_mod
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.control.locomotion import (LocomotionConfig,
                                               locomotion_init,
                                               locomotion_step)
-from quadruped_tpu.dynamics import floating_base as fb
-from quadruped_tpu.gait import ADVANCED_TROT
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim import whole_body as wb
+from quadruped_jax.dynamics import floating_base as fb
+from quadruped_jax.gait import ADVANCED_TROT
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim import whole_body as wb
 
 DT = 0.002
 STEPS = 500   # 1 s of sim per timed call
@@ -78,19 +79,9 @@ def build(batch: int):
         (s, c), _ = jax.lax.scan(step, (sim, ctrl), jnp.arange(STEPS))
         return s.fb.position
 
-    # Chunked vmap (same finding as bench.py CHUNK).
+    # Chunked vmap (same schedule as bench.py CHUNK).
     chunk = int(os.environ.get("QTPU_BENCH_CHUNK", "256"))
-    if chunk > 0 and batch % chunk == 0 and batch > chunk:
-        n_chunks = batch // chunk
-
-        def fn(sim, ctrl, cmd):
-            rs = lambda a: a.reshape((n_chunks, chunk) + a.shape[1:])
-            out = jax.lax.map(
-                lambda ch: jax.vmap(one)(*ch),
-                jax.tree.map(rs, (sim, ctrl, cmd)))
-            return out
-        return jax.jit(fn), (sim0, ctrl0, cmd)
-    return jax.jit(jax.vmap(one)), (sim0, ctrl0, cmd)
+    return bench.chunked(jax.vmap(one), batch, chunk), (sim0, ctrl0, cmd)
 
 
 def main():

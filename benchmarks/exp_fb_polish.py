@@ -23,7 +23,9 @@ sys.path.insert(0, os.path.join(
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+from quadruped_jax.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 import jax.numpy as jnp
 import numpy as np
@@ -75,8 +77,8 @@ def main():
     import pathlib
 
     from test_golden_parity import make_fb_case, run_fb_oracle
-    from quadruped_tpu.control import stance_force_balance as fb
-    from quadruped_tpu.core import se3
+    from quadruped_jax.control import stance_force_balance as fb
+    from quadruped_jax.core import se3
 
     tmp = pathlib.Path("/tmp")
     cases = [(0, (1, 1, 1, 1)), (1, (1, 1, 1, 1)), (2, (1, 0, 1, 1)),

@@ -26,15 +26,17 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+from quadruped_jax.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.core import se3
-from quadruped_tpu.dynamics import srb
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.solvers import condense, cone_qp
-from quadruped_tpu.control.mpc import gravity_warm_start
+from quadruped_jax.core import se3
+from quadruped_jax.dynamics import srb
+from quadruped_jax.robots import a1_params
+from quadruped_jax.solvers import condense, cone_qp
+from quadruped_jax.control.mpc import gravity_warm_start
 
 from exp_h16_tune import CADENCE_S, GROUPS, N_G, cadence_case_at, \
     first_step_err

@@ -25,20 +25,22 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+from quadruped_jax.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import swing
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.control.locomotion import (LocomotionConfig,
+from quadruped_jax.control import swing
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.control.locomotion import (LocomotionConfig,
                                               locomotion_init,
                                               locomotion_step,
                                               stance_contact_mask)
-from quadruped_tpu.control.mpc import MpcConfig, long_horizon_config
-from quadruped_tpu.gait import ADVANCED_TROT
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim import srb_sim
+from quadruped_jax.control.mpc import MpcConfig, long_horizon_config
+from quadruped_jax.gait import ADVANCED_TROT
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim import srb_sim
 
 DT = 0.002
 V_CRUISE = 0.5
@@ -80,7 +82,7 @@ def run(mpc_cfg, use_preview):
         swing_mask = 1.0 - jnp.repeat(stance, 3)
         sim = srb_sim.srb_sim_step(params, sim, forces, stance,
                                    command.q, command.dq, swing_mask, DT)
-        from quadruped_tpu.core import se3
+        from quadruped_jax.core import se3
         pitch = se3.quat_to_rpy(sim.quat)[1]
         return (sim, ctrl), (sim.position[0], sim.position[2],
                              sim.vel_world[0], pitch)

@@ -20,19 +20,21 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+from quadruped_jax.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import mpc, swing
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.control.locomotion import (LocomotionConfig,
+from quadruped_jax.control import mpc, swing
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.control.locomotion import (LocomotionConfig,
                                               locomotion_init,
                                               locomotion_step)
-from quadruped_tpu.dynamics import floating_base as fb
-from quadruped_tpu.gait import ADVANCED_TROT
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim import whole_body as wb
+from quadruped_jax.dynamics import floating_base as fb
+from quadruped_jax.gait import ADVANCED_TROT
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim import whole_body as wb
 
 DT = 0.002
 
@@ -83,8 +85,8 @@ def report(tag, h, x, vxs, pitch, vx_cmd, seconds):
 
 
 def main():
-    from quadruped_tpu.gait import TROT
-    from quadruped_tpu.gait.scheduler import _config
+    from quadruped_jax.gait import TROT
+    from quadruped_jax.gait.scheduler import _config
 
     seconds = float(sys.argv[1]) if len(sys.argv) > 1 else 5.0
     which = sys.argv[2] if len(sys.argv) > 2 else "all"
@@ -117,7 +119,7 @@ def main():
         # 0.4 s FAST_TROT. Raise SwingConfig.foothold_clip past the
         # reference default and measure the demonstrated envelope, both
         # directions.
-        from quadruped_tpu.gait import FAST_TROT
+        from quadruped_jax.gait import FAST_TROT
         print(f"=== FAST_TROT (0.4 s cycle) x foothold_clip sweep, "
               f"{seconds:.0f} s")
         for clip in (0.2, 0.3, 0.4):
@@ -130,7 +132,7 @@ def main():
                 report(f"clip {clip:.1f} vx {vx:+.1f}", h, x, vxs, pitch,
                        vx, seconds)
         print(f"=== standard TROT (0.5 s cycle) backward, clip sweep")
-        from quadruped_tpu.gait import TROT as _T
+        from quadruped_jax.gait import TROT as _T
         for clip in (0.2, 0.3):
             scfg = swing.SwingConfig(
                 foothold_clip=jnp.asarray(clip, jnp.float32))
@@ -147,7 +149,7 @@ def main():
         # time is the real ceiling: v_max ~ 0.28 / t_stance. Measured
         # 1.15 m/s at t_stance 0.24 (= 0.28/0.24). The lever is the duty
         # factor, not the clip: sweep stance time at fixed-ish cycle.
-        from quadruped_tpu.gait.scheduler import _config as _gc
+        from quadruped_jax.gait.scheduler import _config as _gc
         print(f"=== stance-time sweep (advanced foothold law), "
               f"{seconds:.0f} s")
         for stance, duty in ((0.24, 0.6), (0.20, 0.5), (0.16, 0.4),
@@ -163,7 +165,7 @@ def main():
         # sweep: land the foot ~v*stance/2 AHEAD of the hip so the stance
         # sweep straddles the hip instead of trailing it — the missing
         # term the duty sweep exposed.
-        from quadruped_tpu.gait.scheduler import _config as _gc
+        from quadruped_jax.gait.scheduler import _config as _gc
         print(f"=== Raibert forward-placement sweep, {seconds:.0f} s")
         for gain in (0.3, 0.5):
             for stance, duty in ((0.16, 0.4), (0.15, 0.5), (0.12, 0.4)):
@@ -178,7 +180,7 @@ def main():
                            f"{stance/duty:.2f} vx {vx:+.1f}",
                            h, x, vxs, pitch, vx, seconds)
         print("=== backward with Raibert term (standard + fast trot)")
-        from quadruped_tpu.gait import TROT as _T, FAST_TROT as _FT
+        from quadruped_jax.gait import TROT as _T, FAST_TROT as _FT
         for gain in (0.3, 0.5):
             scfg = swing.SwingConfig(
                 foothold_clip=jnp.asarray(0.3, jnp.float32),
@@ -192,8 +194,8 @@ def main():
     if which in ("all", "raibert2"):
         # Best Raibert config (g0.3, 0.15/0.30 stance/cycle) x MPC
         # velocity-weight sweep, plus the backward envelope push.
-        from quadruped_tpu.gait.scheduler import _config as _gc
-        from quadruped_tpu.gait import FAST_TROT as _FT
+        from quadruped_jax.gait.scheduler import _config as _gc
+        from quadruped_jax.gait import FAST_TROT as _FT
         g = _gc(0.15, 0.5, [0.5, 0.0, 0.0, 0.5])
         scfg = swing.SwingConfig(
             foothold_clip=jnp.asarray(0.3, jnp.float32),

@@ -24,11 +24,13 @@ os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+from quadruped_jax.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.solvers import cone_qp
+from quadruped_jax.solvers import cone_qp
 
 H = 10
 

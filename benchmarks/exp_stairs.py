@@ -17,20 +17,22 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+from quadruped_jax.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import stance_force_balance as stance_fb
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.control.walk_locomotion import (WalkConfig, walk_init,
+from quadruped_jax.control import stance_force_balance as stance_fb
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.control.walk_locomotion import (WalkConfig, walk_init,
                                                    walk_step)
-from quadruped_tpu.dynamics import floating_base as fb
-from quadruped_tpu.gait.scheduler import LegState, _config
-from quadruped_tpu.gait.walk import SubLegState
-from quadruped_tpu.planner import foot_stepper
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim import terrain, whole_body as wb
+from quadruped_jax.dynamics import floating_base as fb
+from quadruped_jax.gait.scheduler import LegState, _config
+from quadruped_jax.gait.walk import SubLegState
+from quadruped_jax.planner import foot_stepper
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim import terrain, whole_body as wb
 
 DT = 0.002
 
@@ -84,8 +86,8 @@ def run(seconds=16.0, step_height=0.08, start_x=0.25, vx=0.03,
         sim, _ = wb.whole_body_step(params, model, sim, command, cm, DT,
                                     terrain_height=terr)
         feet_x = st.foot_target_world[:, 0]
-        from quadruped_tpu.core import se3
-        from quadruped_tpu.robots import kinematics
+        from quadruped_jax.core import se3
+        from quadruped_jax.robots import kinematics
         r = se3.quat_to_rotmat(obs.base_quat)
         fw = jnp.einsum("ij,lj->li", r, kinematics
                         .foot_positions_in_base_frame(

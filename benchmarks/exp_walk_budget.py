@@ -10,7 +10,7 @@ whole-body walk closed loop:
     realized-motion deviation over the run;
   * from that, the justified production default.
 
-The companion TPU throughput line lives in benchmarks/bench_walk.py.
+The companion throughput line lives in benchmarks/bench_walk.py.
 
 Run: python benchmarks/exp_walk_budget.py [seconds]
 """
@@ -24,18 +24,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+from quadruped_jax.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import stance_force_balance as stance_fb
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.control.walk_locomotion import (WalkConfig, walk_init,
+from quadruped_jax.control import stance_force_balance as stance_fb
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.control.walk_locomotion import (WalkConfig, walk_init,
                                                    walk_step)
-from quadruped_tpu.dynamics import floating_base as fb
-from quadruped_tpu.gait.scheduler import _config
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim import whole_body as wb
+from quadruped_jax.dynamics import floating_base as fb
+from quadruped_jax.gait.scheduler import _config
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim import whole_body as wb
 
 DT = 0.002
 

@@ -2,8 +2,8 @@
 
 Launches the same timed batched-MPC solve under 1 process and under N
 processes (each with its own set of virtual CPU devices, bootstrapped
-through quadruped_tpu.distributed.runtime — gRPC coordination + gloo
-collectives, the exact code path a TPU pod uses over DCN+ICI), batch
+through quadruped_jax.distributed.runtime — gRPC coordination + gloo
+collectives, the code path a multi-host GPU job uses with NCCL), batch
 per device held constant, and records solves/s + efficiency into
 SCALING.md/json.
 
@@ -37,18 +37,19 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + os.environ["QTPU_DEV_PER_PROC"])
 import jax
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
 sys.path.insert(0, os.environ["QTPU_ROOT"])
+from quadruped_jax.utils import compile_cache
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import PartitionSpec as P
 
-from quadruped_tpu.distributed import runtime
-from quadruped_tpu.control.mpc import MpcConfig
-from quadruped_tpu.core import se3
-from quadruped_tpu.dynamics import srb
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.solvers import condense, cone_qp
+from quadruped_jax.distributed import runtime
+from quadruped_jax.control.mpc import MpcConfig
+from quadruped_jax.core import se3
+from quadruped_jax.dynamics import srb
+from quadruped_jax.robots import a1_params
+from quadruped_jax.solvers import condense, cone_qp
 
 runtime.initialize_from_env()
 n_dev = jax.device_count()

@@ -1,18 +1,14 @@
-"""Produce the recorded scaling artifact: SCALING.md + SCALING.json.
+"""Produce the scaling artifact: SCALING.md + SCALING.json.
 
-Round-5 rewrite (VERDICT r4 item 2): the harness now times EXACTLY the
-program bench.py times — bench.build_bench's full production MPC update
-(trajectory build + SRB + ZOH + condensation + cone build + warm
-Fast-ADMM solve, batch-chunked through lax.map) — so no number recorded
-here can drift from the headline. The pre-round-5 harness timed a
-different program (solve-only, monolithic graph, B=256); its recorded
-TPU numbers (151.5k r3 / 139.5k r4) are not comparable to the bench
-headline and their spread was harness sensitivity, eliminated by reusing
-bench.build_bench verbatim.
+The harness times EXACTLY the program bench.py times —
+bench.build_bench's full production MPC update (trajectory build + SRB +
+ZOH + condensation + cone build + warm Fast-ADMM solve, batch-chunked
+through lax.map) — so no number recorded here can drift from the
+headline.
 
 Measures:
   * single-device headline at the production chunked configuration
-    (H=10 and, on TPU, the H=16 long-horizon configuration), with the
+    (H=10 and, on the GPU, the H=16 long-horizon configuration), with the
     same median + band discipline as bench.py;
   * weak scaling 1 -> N devices (batch-per-device constant, shard_map
     over the dp mesh axis, each device running the same chunked update);
@@ -21,9 +17,8 @@ Measures:
 
 Run on the CPU virtual mesh (default in CI: 8 virtual devices):
     python benchmarks/scaling_report.py --platform cpu
-Run on TPU (single chip today; the same script scales to a pod where
-jax.devices() is larger, and initialize_from_env() bootstraps
-multi-process):
+Run on the GPUs of one host (the same script scales to several hosts,
+where initialize_from_env() bootstraps multi-process):
     python benchmarks/scaling_report.py
 
 Rewrites SCALING.json (per-platform entries) and regenerates SCALING.md
@@ -51,8 +46,8 @@ def parse_args():
     ap.add_argument("--batch-per-device", type=int, default=256,
                     help="weak-scaling batch per device")
     ap.add_argument("--headline-batch", type=int, default=None,
-                    help="single-device headline batch (default: 32768 on "
-                         "TPU — the bench.py default — 512 on CPU)")
+                    help="single-device headline batch (default: 32768, "
+                         "the bench.py default; 512 on CPU)")
     ap.add_argument("--chunk", type=int, default=256)
     ap.add_argument("--runs", type=int, default=3,
                     help="independent timing runs for the band")
@@ -83,15 +78,15 @@ def main():
     from jax.sharding import PartitionSpec as P
     from jax import shard_map
 
-    from quadruped_tpu.distributed import initialize_from_env, make_mesh
-    from quadruped_tpu.distributed.mesh import shard_batch
-    from quadruped_tpu.control.mpc import MpcConfig, long_horizon_config
+    from quadruped_jax.distributed import initialize_from_env, make_mesh
+    from quadruped_jax.distributed.mesh import shard_batch
+    from quadruped_jax.control.mpc import MpcConfig, long_horizon_config
 
     initialize_from_env()
     n_dev = jax.device_count()
     platform = jax.devices()[0].platform
-    on_tpu = platform not in ("cpu",)
-    headline_batch = args.headline_batch or (32768 if on_tpu else 512)
+    on_gpu = platform == "gpu"
+    headline_batch = args.headline_batch or (32768 if on_gpu else 512)
 
     results = {
         "date": datetime.date.today().isoformat(),
@@ -107,15 +102,15 @@ def main():
     }
 
     # --- single-device headline, the bench.py program verbatim ---
-    rate, band, _, _ = bench.measure(headline_batch, False, "trot",
+    rate, band, _, _ = bench.measure(headline_batch, "trot",
                                      horizon=10, chunk=args.chunk,
                                      runs=args.runs)
     results["headline_h10_solves_per_s_1dev"] = round(rate, 1)
     results["headline_h10_band"] = [round(band[0], 1), round(band[1], 1)]
 
-    if on_tpu and not args.skip_h16:
+    if on_gpu and not args.skip_h16:
         mb = long_horizon_config().move_block
-        rate16, band16, _, _ = bench.measure(headline_batch, False, "trot",
+        rate16, band16, _, _ = bench.measure(headline_batch, "trot",
                                              move_block=mb, horizon=16,
                                              chunk=args.chunk,
                                              runs=args.runs)
@@ -126,8 +121,8 @@ def main():
     if platform == "cpu":
         # Virtual host devices share the machine's cores: weak-scaling
         # efficiency is hard-bounded by cores/devices. Record the bound so
-        # the number is interpretable (on a TPU slice each device is a
-        # real chip and the bound is 1.0).
+        # the number is interpretable (on real cards each device has its
+        # own compute and the bound is 1.0).
         cores = os.cpu_count() or 1
         results["physical_cores"] = cores
         results["efficiency_upper_bound"] = round(min(1.0, cores / n_dev), 4)
@@ -137,7 +132,7 @@ def main():
         per_dev = args.batch_per_device
         # Build the per-device program (unjitted) + per-device warm args
         # from bench itself, then run one copy per device under shard_map.
-        fn, dev_args, _ = bench.build_bench(per_dev, False, "trot",
+        fn, dev_args, _ = bench.build_bench(per_dev, "trot",
                                             horizon=10, chunk=args.chunk)
         raw = getattr(fn, "__wrapped__", fn)
         mesh = make_mesh(n_devices)
@@ -173,43 +168,17 @@ def main():
 
     # --- sp-latency at fleet batch (needs >= 2 devices) ---
     if n_dev >= 2:
-        import jax.numpy as jnp
-        from quadruped_tpu.distributed import solve_cone_sp
-        from quadruped_tpu.core import se3
-        from quadruped_tpu.dynamics import srb
-        from quadruped_tpu.robots import a1_params
-        from quadruped_tpu.solvers import condense, cone_qp
+        from quadruped_jax.distributed import solve_cone_sp
+        from quadruped_jax.robots import a1_params
 
         cfg = MpcConfig()
         params = a1_params()
-        weights = jnp.asarray(
-            [10, 10, 5, 40, 60, 100, 0, 0, 0.5, 5, 5, 1, 0.0], jnp.float32)
         b = args.fleet_batch
-        H, DT = 10, 0.03
         rpy, feet, x0 = bench.make_states(b, 0.0, np.random.default_rng(1))
-        table = bench.trot_table(b, 0.0, np.random.default_rng(2), H)
-
-        def build_prob(rpy, feet, x0, contact):
-            r = se3.rpy_to_rotmat(jnp.asarray(rpy))
-            k = jnp.arange(H, dtype=jnp.float32)[:, None]
-            drift = jnp.zeros((13,), jnp.float32).at[3].set(0.4 * DT)
-            x_des = (jnp.asarray(x0)[:, None, :]
-                     + k[None] * drift[None, None, :])
-            x_des = x_des.at[..., 9].set(0.4)
-            a, bmat = srb.srb_continuous(r, params.total_inertia,
-                                         params.total_mass,
-                                         jnp.asarray(feet))
-            ad, bd = srb.srb_discretize(a, bmat, DT)
-            p, q = condense.condense_cost_structured(
-                a, bd, ad, jnp.asarray(x0), x_des, weights, 4e-6, H, DT)
-            fz_hi = (jnp.asarray(contact) * params.max_force) \
-                .reshape(b, H * 4)
-            return cone_qp.ConeQP(p=p, q=q,
-                                  mu=jnp.asarray(0.45, jnp.float32),
-                                  fz_lo=jnp.zeros_like(fz_hi),
-                                  fz_hi=fz_hi)
-
-        prob = jax.jit(build_prob)(rpy, feet, x0, table)
+        table = bench.trot_table(b, 0.0, np.random.default_rng(2),
+                                 cfg.horizon)
+        prob = jax.jit(lambda *a: bench.mpc_problem(cfg, params, *a))(
+            rpy, feet, x0, table)
         jax.block_until_ready(prob)
         sp = min(4, n_dev)
         lat = {}
@@ -230,12 +199,7 @@ def main():
     existing = {}
     if out.exists():
         existing = json.loads(out.read_text())
-    existing.pop("_history_note", None)
     existing[platform] = results
-    existing["_history_note"] = (
-        "Entries produced by benchmarks/scaling_report.py round-5+, which "
-        "times bench.build_bench verbatim. Pre-round-5 entries (solve-only "
-        "monolithic harness) were removed as not comparable.")
     out.write_text(json.dumps(existing, indent=2) + "\n")
     write_md(Path(args.md), existing)
     print(json.dumps(results))
@@ -243,8 +207,7 @@ def main():
 
 def write_md(md: Path, data: dict):
     """Regenerate SCALING.md wholesale from SCALING.json so the two
-    artifacts cannot disagree (VERDICT r4: the dated-append format had
-    accumulated internally inconsistent numbers)."""
+    artifacts cannot disagree."""
     lines = [
         "# Scaling record",
         "",
@@ -253,7 +216,7 @@ def write_md(md: Path, data: dict):
         "program `bench.py` times** (`bench.build_bench`: full production "
         "MPC update, warm Fast-ADMM at the 15 ms cadence, trot table, "
         "batch-chunked), so the single-device numbers here and the "
-        "BENCH_r*.json headline are the same measurement by construction.",
+        "bench.py headline are the same measurement by construction.",
         "",
         "## Methodology notes",
         "",
@@ -268,14 +231,10 @@ def write_md(md: Path, data: dict):
         "`efficiency_upper_bound = cores/devices` is recorded and the "
         "honest comparison is `efficiency_vs_bound`.",
         "- The `sp` (solver-parallel) axis remains a correctness-proven "
-        "mechanism with no winning regime measured in this environment "
-        "(round-3/4 result, `distributed/solver_sp.py` docstring): sp>1 "
-        "is 2-2.6x slower than sp=1 at every batch/horizon tried on the "
-        "virtual mesh, pending real multi-chip ICI.",
-        "- History: pre-round-5 reports timed a solve-only monolithic "
-        "program at B=256; its TPU entries (151.5k r3, 139.5k r4) are "
-        "not comparable to the headline — the drift between them was "
-        "harness sensitivity, eliminated by this rewrite.",
+        "mechanism with no winning regime measured so far "
+        "(`distributed/solver_sp.py` docstring): sp>1 is 2-2.6x slower "
+        "than sp=1 at every batch/horizon tried on the CPU virtual mesh; "
+        "not measured across cards.",
         "",
     ]
     for platform, res in data.items():

@@ -1,6 +1,6 @@
 """Cross a gap strip with the walk stack and render it to a 3-D GIF.
 
-    QTPU_CPU=1 python examples/example_gap_crossing.py [out.gif] [seconds]
+    JAX_PLATFORMS=cpu python examples/example_gap_crossing.py [out.gif] [seconds]
 
 The statically-stable walk crosses a 6 cm gap on the 18-DoF whole-body
 sim, with planner/foot_stepper.gap_foothold_adjust coordinating the
@@ -20,23 +20,23 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import jax
 
-if os.environ.get("QTPU_CPU"):
-    jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+from quadruped_jax.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import stance_force_balance as stance_fb
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.control.walk_locomotion import (WalkConfig, walk_init,
+from quadruped_jax.control import stance_force_balance as stance_fb
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.control.walk_locomotion import (WalkConfig, walk_init,
                                                    walk_step)
-from quadruped_tpu.core import se3
-from quadruped_tpu.dynamics import floating_base as fb
-from quadruped_tpu.gait.scheduler import _config
-from quadruped_tpu.planner import foot_stepper
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim import terrain, whole_body as wb
-from quadruped_tpu.utils import viz3d
+from quadruped_jax.core import se3
+from quadruped_jax.dynamics import floating_base as fb
+from quadruped_jax.gait.scheduler import _config
+from quadruped_jax.planner import foot_stepper
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim import terrain, whole_body as wb
+from quadruped_jax.utils import viz3d
 
 DT = 0.002
 GAP_X = 0.25

@@ -1,6 +1,6 @@
 """Render a trotting A1 to an animated 3-D GIF (the xpp/RViz analogue).
 
-    QTPU_CPU=1 python examples/example_viz3d.py [out.gif]
+    JAX_PLATFORMS=cpu python examples/example_viz3d.py [out.gif]
 
 Runs a 2 s whole-body advanced trot, captures per-tick base pose + joint
 angles, and writes an animated skeleton GIF plus a 3-panel snapshot.
@@ -15,23 +15,23 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import jax
 
-if os.environ.get("QTPU_CPU"):
-    jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+from quadruped_jax.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import mpc, swing
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.control.locomotion import (LocomotionConfig,
+from quadruped_jax.control import mpc, swing
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.control.locomotion import (LocomotionConfig,
                                               locomotion_init,
                                               locomotion_step)
-from quadruped_tpu.core import se3
-from quadruped_tpu.dynamics import floating_base as fb
-from quadruped_tpu.gait import ADVANCED_TROT
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim import whole_body as wb
-from quadruped_tpu.utils import viz3d
+from quadruped_jax.core import se3
+from quadruped_jax.dynamics import floating_base as fb
+from quadruped_jax.gait import ADVANCED_TROT
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim import whole_body as wb
+from quadruped_jax.utils import viz3d
 
 
 def main(out="/tmp/trot3d.gif", steps=1000):

@@ -1,10 +1,10 @@
-// Host-side real-robot I/O runtime for quadruped_tpu.
+// Host-side real-robot I/O runtime for quadruped_jax.
 //
 // Replaces the reference's vendor SDK boundary (unitree_legged_sdk
 // RobotInterface: UDP(LOWLEVEL) + Safety guard + internal receive thread,
 // reference: quadruped/extern/unitree_legged_sdk/include/unitree_legged_sdk/
 // unitree_interface.h:14-36, and the DeepRobotics receive-thread SDK) with a
-// dependency-free C++ runtime the TPU control process drives through ctypes:
+// dependency-free C++ runtime the GPU control process drives through ctypes:
 //
 //   * a UDP receiver thread parses low-level state packets into a
 //     seqlock-protected latest-state snapshot (wait-free reads from the
@@ -450,7 +450,7 @@ int qtpu_bridge_send_simple(void* handle, uint32_t code, uint32_t value) {
 // Hardware-in-the-loop at fleet scale: N robots on consecutive UDP ports,
 // one receive thread per robot, and ONE C call per control tick to gather
 // all latest-state snapshots into a contiguous [n, 51] batch buffer (the
-// layout the batched TPU control step consumes directly) and one to fan a
+// layout the batched control step consumes directly) and one to fan a
 // [n, 60] command batch back out. This keeps the Python hot loop at two
 // ctypes calls per tick regardless of fleet size.
 

@@ -1,7 +1,7 @@
 // Golden-parity oracle: drives the REFERENCE MPC kernel (compiled in place
 // from /root/reference — qr_mpc_interface.cpp + vendored qpOASES) on a test
 // case read from a file, printing the full force solution. The Python test
-// (tests/test_golden_parity.py) compares quadruped_tpu's batched
+// (tests/test_golden_parity.py) compares quadruped_jax's batched
 // ZOH+condensation+ADMM pipeline against this oracle's
 // expm+condensation+qpOASES output.
 //

@@ -18,7 +18,6 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))   # repo root
@@ -26,8 +25,11 @@ sys.path.insert(0, HERE)                    # tests/
 
 import numpy as np  # noqa: E402
 
-from quadruped_tpu.distributed import runtime  # noqa: E402
-from quadruped_tpu.distributed.scaling import sharded_solve_stats  # noqa: E402
+from quadruped_jax.utils import compile_cache  # noqa: E402
+from quadruped_jax.distributed import runtime  # noqa: E402
+from quadruped_jax.distributed.scaling import sharded_solve_stats  # noqa: E402
+
+compile_cache.enable()
 
 
 def main():

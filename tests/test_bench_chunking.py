@@ -1,6 +1,6 @@
 """Batch chunking equivalence (bench.py CHUNK / the chunked benches).
 
-The 282.5k solves/s headline runs the batch as sequential lax.map chunks
+The bench.py headline runs the batch as sequential lax.map chunks
 inside one jit — scheduling only. This pins the claim that licenses it:
 chunked and monolithic graphs produce the same solutions to
 reassociation-level roundoff (measured ~3e-4 N on forces, vs the ~3.8 N
@@ -21,10 +21,10 @@ def test_chunked_matches_monolithic(monkeypatch):
     importlib.reload(bench)
     assert bench.CHUNK == 16
 
-    fn_c, args_c, _ = bench.build_bench(64, False, "trot")
+    fn_c, args_c, _ = bench.build_bench(64, "trot")
     out_c = fn_c(*args_c)
     bench.CHUNK = 0
-    fn_m, args_m, _ = bench.build_bench(64, False, "trot")
+    fn_m, args_m, _ = bench.build_bench(64, "trot")
     out_m = fn_m(*args_m)
 
     xc = np.asarray(out_c[0]).reshape(64, -1)

@@ -13,13 +13,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadruped_tpu.control import mpc as mpc_mod, swing as swing_mod
-from quadruped_tpu.control.locomotion import LocomotionConfig
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.gait import ADVANCED_TROT
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim.rollout import rollout, rollout_init, rollout_segment
-from quadruped_tpu.utils import checkpoint as ckpt
+from quadruped_jax.control import mpc as mpc_mod, swing as swing_mod
+from quadruped_jax.control.locomotion import LocomotionConfig
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.gait import ADVANCED_TROT
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim.rollout import rollout, rollout_init, rollout_segment
+from quadruped_jax.utils import checkpoint as ckpt
 
 
 def _config():

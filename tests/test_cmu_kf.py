@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.core import se3
-from quadruped_tpu.estimation import cmu_kf
-from quadruped_tpu.robots import a1_params, kinematics
+from quadruped_jax.core import se3
+from quadruped_jax.estimation import cmu_kf
+from quadruped_jax.robots import a1_params, kinematics
 
 DT = 0.002
 

@@ -1,9 +1,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.dynamics import srb
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.solvers import condense, qp
+from quadruped_jax.dynamics import srb
+from quadruped_jax.robots import a1_params
+from quadruped_jax.solvers import condense, qp
 
 H = 5
 
@@ -82,7 +82,7 @@ def test_structured_condensation_matches_generic():
     """The closed-form condensation (nilpotent SRB) must equal the generic
     power/Toeplitz build to f32 roundoff."""
     import numpy as np
-    from quadruped_tpu.core import se3
+    from quadruped_jax.core import se3
 
     params = a1_params()
     rng = np.random.default_rng(7)

@@ -20,7 +20,7 @@ import time
 import numpy as np
 import pytest
 
-from quadruped_tpu.runtime.bridge import (DR_CMD_RELEASE_CONTROL,
+from quadruped_jax.runtime.bridge import (DR_CMD_RELEASE_CONTROL,
                                           DR_CMD_TAKE_CONTROL, RobotBridge,
                                           native_available)
 
@@ -170,7 +170,7 @@ def test_robotstate_decode_and_robotcmd_encode():
 def test_deeprobotics_fleet():
     """A 2-robot DeepRobotics fleet: gather decodes vendor RobotState
     packets per robot; send fans out vendor RobotCmd packets per robot."""
-    from quadruped_tpu.runtime.bridge import FleetBridge
+    from quadruped_jax.runtime.bridge import FleetBridge
 
     base_state = _free_udp_port()
     mcus = []

@@ -8,11 +8,11 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from quadruped_tpu.distributed import make_mesh, batch_sharding, shard_batch
-from quadruped_tpu.distributed.scaling import sharded_solve_stats
-from quadruped_tpu.dynamics import srb
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.solvers import condense, cone_qp
+from quadruped_jax.distributed import make_mesh, batch_sharding, shard_batch
+from quadruped_jax.distributed.scaling import sharded_solve_stats
+from quadruped_jax.dynamics import srb
+from quadruped_jax.robots import a1_params
+from quadruped_jax.solvers import condense, cone_qp
 
 H = 5
 
@@ -81,11 +81,11 @@ def test_sharded_closed_loop_rollout_matches_unsharded():
     the same batch unsharded — the rollout-level companion to the
     solve-level test above and to __graft_entry__.dryrun_multichip
     (VERDICT r2 weak #3: the dryrun alone is only a compile check)."""
-    from quadruped_tpu.control import mpc as mpc_mod, swing as swing_mod
-    from quadruped_tpu.control.locomotion import LocomotionConfig
-    from quadruped_tpu.control.desired_state import TwistCommand
-    from quadruped_tpu.gait import ADVANCED_TROT
-    from quadruped_tpu.sim.rollout import rollout
+    from quadruped_jax.control import mpc as mpc_mod, swing as swing_mod
+    from quadruped_jax.control.locomotion import LocomotionConfig
+    from quadruped_jax.control.desired_state import TwistCommand
+    from quadruped_jax.gait import ADVANCED_TROT
+    from quadruped_jax.sim.rollout import rollout
 
     config = LocomotionConfig(
         mpc=mpc_mod.MpcConfig(horizon=10, qp_iters=24, qp_cold_iters=120),

@@ -2,17 +2,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.core import se3
-from quadruped_tpu.robots import a1_params, kinematics as kin
-from quadruped_tpu.estimation import velocity as vel_mod, ground as ground_mod
-from quadruped_tpu.estimation.contact import (contact_detection_init,
+from quadruped_jax.core import se3
+from quadruped_jax.robots import a1_params, kinematics as kin
+from quadruped_jax.estimation import velocity as vel_mod, ground as ground_mod
+from quadruped_jax.estimation.contact import (contact_detection_init,
                                               contact_detection_update,
                                               phase_prior)
-from quadruped_tpu.estimation.container import (EstimatorConfig,
+from quadruped_jax.estimation.container import (EstimatorConfig,
                                                 RawSensors,
                                                 estimator_init,
                                                 estimator_update)
-from quadruped_tpu.estimation.velocity import VelocityEstimatorConfig
+from quadruped_jax.estimation.velocity import VelocityEstimatorConfig
 
 
 def test_velocity_estimator_converges_to_true_velocity():
@@ -122,7 +122,7 @@ def test_external_knee_torque_zero_in_free_swing():
     # A calf following its own free dynamics (tau_knee exactly the inertia +
     # gravity terms) shows zero external torque; extra measured torque shows
     # up sign-flipped (qr_anomaly_detection.cpp:299-316).
-    from quadruped_tpu.estimation.contact import external_knee_torque
+    from quadruped_jax.estimation.contact import external_knee_torque
 
     params = a1_params()
     ddq = jnp.zeros(12).at[2::3].set(3.0)
@@ -136,7 +136,7 @@ def test_external_knee_torque_zero_in_free_swing():
 
 
 def test_workspace_clip_box():
-    from quadruped_tpu.estimation.contact import workspace_clip
+    from quadruped_jax.estimation.contact import workspace_clip
 
     params = a1_params()
     allowed = jnp.asarray([0.2, 0.2, 0.35], jnp.float32)

@@ -15,18 +15,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import quadruped_tpu.core.se3 as se3
-from quadruped_tpu.control import mpc, swing
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.control.fsm import FsmState
-from quadruped_tpu.control.locomotion import LocomotionConfig
-from quadruped_tpu.dynamics import floating_base as fb
-from quadruped_tpu.estimation.container import EstimatorConfig, RawSensors
-from quadruped_tpu.estimation.velocity import VelocityEstimatorConfig
-from quadruped_tpu.exec import RunnerConfig, runner_init, runner_step
-from quadruped_tpu.gait import ADVANCED_TROT
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim import whole_body as wb
+import quadruped_jax.core.se3 as se3
+from quadruped_jax.control import mpc, swing
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.control.fsm import FsmState
+from quadruped_jax.control.locomotion import LocomotionConfig
+from quadruped_jax.dynamics import floating_base as fb
+from quadruped_jax.estimation.container import EstimatorConfig, RawSensors
+from quadruped_jax.estimation.velocity import VelocityEstimatorConfig
+from quadruped_jax.exec import RunnerConfig, runner_init, runner_step
+from quadruped_jax.gait import ADVANCED_TROT
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim import whole_body as wb
 
 DT = 0.002
 STEPS = 3000   # 6 s: ~3 s FSM stand-up ramp + >= 3 s of estimated trot

@@ -17,9 +17,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadruped_tpu.core import se3
-from quadruped_tpu.dynamics import floating_base as fb
-from quadruped_tpu.robots import a1_params, kinematics as kin
+from quadruped_jax.core import se3
+from quadruped_jax.dynamics import floating_base as fb
+from quadruped_jax.robots import a1_params, kinematics as kin
 
 
 @pytest.fixture(scope="module")

@@ -2,13 +2,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import fsm as fsm_mod, actions, safety
-from quadruped_tpu.control.types import HybridCommand, RobotObservation
-from quadruped_tpu.robots import a1_params
+from quadruped_jax.control import fsm as fsm_mod, actions, safety
+from quadruped_jax.control.types import HybridCommand, RobotObservation
+from quadruped_jax.robots import a1_params
 
 
 def make_obs(params, rpy=(0.0, 0.0, 0.0), height=0.28):
-    from quadruped_tpu.core import se3
+    from quadruped_jax.core import se3
 
     rpy = jnp.asarray(rpy, jnp.float32)
     return RobotObservation(

@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu import gait
+from quadruped_jax import gait
 
 
 def rollout(config, steps=2000, dt=0.001, contact_fn=None):

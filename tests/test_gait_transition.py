@@ -11,14 +11,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.control.gait_transition import (TransitionPhase,
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.control.gait_transition import (TransitionPhase,
                                                    gait_transition_init,
                                                    gait_transition_step,
                                                    request_transition)
-from quadruped_tpu.gait import (TROT, BOUND, ADVANCED_TROT, gait_init,
+from quadruped_jax.gait import (TROT, BOUND, ADVANCED_TROT, gait_init,
                                 gait_update, stance_contact_mask)
-from quadruped_tpu.gait.scheduler import _config
+from quadruped_jax.gait.scheduler import _config
 
 
 def test_transition_sequence():
@@ -86,11 +86,11 @@ def test_closed_loop_trot_walk_trot():
     """Trot -> (slow-down, stance-hold) -> walk -> trot on the SRB sim,
     driven through TwistCommand.gait_switch, without falling. Matches
     qr_fsm_state_locomotion.cpp:161-340 wired into the closed loop."""
-    from quadruped_tpu.control import mpc as mpc_mod, swing as swing_mod
-    from quadruped_tpu.control.locomotion import LocomotionConfig
-    from quadruped_tpu.sim.rollout import rollout_init, rollout_segment
+    from quadruped_jax.control import mpc as mpc_mod, swing as swing_mod
+    from quadruped_jax.control.locomotion import LocomotionConfig
+    from quadruped_jax.sim.rollout import rollout_init, rollout_segment
 
-    from quadruped_tpu.robots import a1_params
+    from quadruped_jax.robots import a1_params
 
     walk4 = _config(0.45, 0.75, [0.5, 0.0, 0.75, 0.25])
     config = LocomotionConfig(

@@ -3,7 +3,7 @@
 The oracle (tests/golden/) compiles the reference's own
 qr_mpc_interface.cpp + vendored qpOASES in place from /root/reference and
 solves the same cases: 25x25 matrix-exponential discretization + dense
-condensation + warm-started active-set QP. quadruped_tpu solves them with
+condensation + warm-started active-set QP. quadruped_jax solves them with
 exact closed-form ZOH + the batched ADMM cone solver. This is the
 BASELINE.md "stance forces match reference within tolerance" gate.
 """
@@ -16,10 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadruped_tpu.core import se3
-from quadruped_tpu.dynamics import srb
-from quadruped_tpu.robots import a1_params, aliengo_params, lite3_params
-from quadruped_tpu.solvers import condense, cone_qp
+from quadruped_jax.core import se3
+from quadruped_jax.dynamics import srb
+from quadruped_jax.robots import a1_params, aliengo_params, lite3_params
+from quadruped_jax.solvers import condense, cone_qp
 
 HERE = Path(__file__).parent
 ORACLE = Path("/tmp/golden_build/mpc_golden")
@@ -142,7 +142,7 @@ def test_first_step_forces_match_reference(seed, robot, tmp_path):
 
 def test_torque_parity(tmp_path):
     """Map both force solutions through the same J^T: joint torques agree."""
-    from quadruped_tpu.robots import kinematics
+    from quadruped_jax.robots import kinematics
 
     case = make_case(3)
     params, rpy = case[0], case[1]
@@ -166,7 +166,7 @@ def test_torque_parity(tmp_path):
 # exactly this configuration) to the parity claim.
 # ---------------------------------------------------------------------------
 
-from quadruped_tpu.control.mpc import MpcConfig, gravity_warm_start  # noqa: E402
+from quadruped_jax.control.mpc import MpcConfig, gravity_warm_start  # noqa: E402
 
 PROD = MpcConfig()
 CADENCE_S = 0.015  # 15 ticks at 1 kHz (UpdateMPC :342)
@@ -255,8 +255,8 @@ def test_production_cadence_parity(seed, move_block, use_carry, tmp_path):
     condensed system (head 6 + tail pairs — the throughput lever,
     solvers/condense.py), which must clear the same gates: this is what
     licenses blocking in the headline bench."""
-    from quadruped_tpu.robots import kinematics
-    from quadruped_tpu.solvers import condense as cnd
+    from quadruped_jax.robots import kinematics
+    from quadruped_jax.solvers import condense as cnd
 
     if move_block:
         groups, n_g = cnd.move_block_groups(H, *move_block)
@@ -291,8 +291,8 @@ def test_production_cadence_parity(seed, move_block, use_carry, tmp_path):
             # use_carry toggles the cross-cadence M^{-1} reuse (rescale
             # + pinned-row Woodbury + short NS polish) so BOTH warm
             # configurations are oracle-gated: cold-NS (the default
-            # bench/headline path — the reuse is a measured TPU negative
-            # result, HBM-bound) and the reuse mechanism itself. The
+            # bench/headline path — the reuse is off by default, its
+            # speed unproven) and the reuse mechanism itself. The
             # flip-aware warm-start shift is NOT in this chain: it is
             # off by default (measured worst-case/typical trade-off,
             # MpcConfig.qp_warm_shift) and gated separately in
@@ -326,10 +326,10 @@ FB_ORACLE = Path("/tmp/golden_build/fb_golden")
 
 
 def make_fb_case(seed, contacts=(1, 1, 1, 1)):
-    from quadruped_tpu.control import stance_force_balance as fb
-    from quadruped_tpu.control.desired_state import desired_state_init
-    from quadruped_tpu.control.types import RobotObservation
-    from quadruped_tpu.robots import kinematics
+    from quadruped_jax.control import stance_force_balance as fb
+    from quadruped_jax.control.desired_state import desired_state_init
+    from quadruped_jax.control.types import RobotObservation
+    from quadruped_jax.robots import kinematics
 
     rng = np.random.default_rng(seed)
     params = a1_params()
@@ -390,7 +390,7 @@ def test_force_balance_matches_reference(seed, contacts, tmp_path):
     our stance_torques feeds J^T (GetAction :508)."""
     if not FB_ORACLE.exists():
         pytest.skip("fb oracle unavailable")
-    from quadruped_tpu.control import stance_force_balance as fb
+    from quadruped_jax.control import stance_force_balance as fb
 
     params, config, obs, des, a_des, feet_base, cvec = \
         make_fb_case(seed, contacts)
@@ -413,9 +413,8 @@ def test_force_balance_matches_reference(seed, contacts, tmp_path):
 # ---------------------------------------------------------------------------
 # Long-horizon (H=16) move-blocked configuration: 0.48 s of lookahead at
 # H=10-class solve cost. 12*16 = 192 full variables vs 12*(4+4) = 96
-# blocked — UNDER the 128-lane MXU tile where the full system pays for
-# two tiles. This is where move blocking actually pays on TPU
-# (at H=10 both 120 and 96 pad to the same tile — measured, STATUS.md).
+# blocked. This is where move blocking pays most (at H=10 it shrinks the
+# system only 120 -> 96).
 # ---------------------------------------------------------------------------
 
 H_LONG = 16
@@ -466,7 +465,7 @@ def test_long_horizon_blocked_consistency(seed):
     oracle stops being a trustworthy optimum there. The blocking lever's
     claim at long horizons is internal consistency + the H=10 oracle
     gates above."""
-    from quadruped_tpu.solvers import condense as cnd
+    from quadruped_jax.solvers import condense as cnd
 
     groups, n_g = cnd.move_block_groups(H_LONG, 6, 2)
     case = make_case_long(seed)
@@ -511,7 +510,7 @@ def test_long_horizon_blocked_consistency(seed):
 # oracle chain is anchored at H<=10 by the tests above.
 # ---------------------------------------------------------------------------
 
-from quadruped_tpu.control.mpc import long_horizon_config  # noqa: E402
+from quadruped_jax.control.mpc import long_horizon_config  # noqa: E402
 
 H16 = long_horizon_config()
 H16_GROUPS, H16_NG = condense.move_block_groups(H_LONG, *H16.move_block)

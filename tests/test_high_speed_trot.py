@@ -19,16 +19,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import mpc, swing
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.control.locomotion import (LocomotionConfig,
+from quadruped_jax.control import mpc, swing
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.control.locomotion import (LocomotionConfig,
                                               locomotion_init,
                                               locomotion_step)
-from quadruped_tpu.dynamics import floating_base as fb
-from quadruped_tpu.gait import FAST_TROT, TROT
-from quadruped_tpu.gait.scheduler import _config
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim import whole_body as wb
+from quadruped_jax.dynamics import floating_base as fb
+from quadruped_jax.gait import FAST_TROT, TROT
+from quadruped_jax.gait.scheduler import _config
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim import whole_body as wb
 
 DT = 0.002
 
@@ -142,11 +142,11 @@ def test_trot_one_meter_per_second_estimated():
     container -> controller (the reference's actual operating condition —
     every controller reads qrRobotEstimator outputs, never ground truth).
     """
-    import quadruped_tpu.core.se3 as se3
-    from quadruped_tpu.estimation.container import (EstimatorConfig,
+    import quadruped_jax.core.se3 as se3
+    from quadruped_jax.estimation.container import (EstimatorConfig,
                                                     RawSensors)
-    from quadruped_tpu.estimation.velocity import VelocityEstimatorConfig
-    from quadruped_tpu.exec import RunnerConfig, runner_init, runner_step
+    from quadruped_jax.estimation.velocity import VelocityEstimatorConfig
+    from quadruped_jax.exec import RunnerConfig, runner_init, runner_step
 
     params = a1_params()
     model = fb.build_model(params)

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadruped_tpu.robots import a1_params, aliengo_params, lite3_params, kinematics as kin
+from quadruped_jax.robots import a1_params, aliengo_params, lite3_params, kinematics as kin
 
 
 @pytest.fixture(params=["a1", "aliengo", "lite3"])

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadruped_tpu.core import linalg
+from quadruped_jax.core import linalg
 
 
 def _random_spd(n, batch=(), seed=0, cond=100.0):
@@ -56,8 +56,8 @@ def test_inv_spd_diagonal_ill_conditioning_is_free():
 def test_inv_spd_real_mass_matrix():
     """The A1 18-DoF CRBA mass matrix (kappa ~ 4.5e3 raw, ~16 after
     Jacobi scaling) inverts to f32 accuracy."""
-    from quadruped_tpu.robots.params import a1_params
-    from quadruped_tpu.dynamics import floating_base as fb
+    from quadruped_jax.robots.params import a1_params
+    from quadruped_jax.dynamics import floating_base as fb
     model = fb.build_model(a1_params())
     rng = np.random.default_rng(2)
     q = jnp.asarray(np.tile([0.0, 0.9, -1.8], 4)

@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import mpc as mpc_mod, swing as swing_mod
-from quadruped_tpu.control.desired_state import ControlMode, TwistCommand
-from quadruped_tpu.control.locomotion import LocomotionConfig
-from quadruped_tpu.gait import TROT
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim.rollout import rollout
+from quadruped_jax.control import mpc as mpc_mod, swing as swing_mod
+from quadruped_jax.control.desired_state import ControlMode, TwistCommand
+from quadruped_jax.control.locomotion import LocomotionConfig
+from quadruped_jax.gait import TROT
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim.rollout import rollout
 
 
 def run_mode(mode, vx=0.25, steps=400):
@@ -45,11 +45,11 @@ def test_blocked_leg_probes_downward():
     """A leg in touchdown wait joins the swing set with a probe-down target
     2 cm below the current foot (swing.py blocked branch; reference
     ComputeHeuristicFootHold !allowSwitchLegState)."""
-    from quadruped_tpu.control.desired_state import desired_state_init
-    from quadruped_tpu.control.types import RobotObservation
-    from quadruped_tpu.core import se3
-    from quadruped_tpu import gait as gait_mod
-    from quadruped_tpu.robots import kinematics
+    from quadruped_jax.control.desired_state import desired_state_init
+    from quadruped_jax.control.types import RobotObservation
+    from quadruped_jax.core import se3
+    from quadruped_jax import gait as gait_mod
+    from quadruped_jax.robots import kinematics
 
     params = a1_params()
     config = swing_mod.SwingConfig()
@@ -96,8 +96,8 @@ def test_wbc_trot_through_rollout():
     builds the whole-body model and passes it to locomotion_step — the
     reference builds the dynamic model in the locomotion FSM ctor) and the
     closed loop must stay up and track."""
-    from quadruped_tpu.control import wbc as wbc_mod
-    from quadruped_tpu.gait import ADVANCED_TROT
+    from quadruped_jax.control import wbc as wbc_mod
+    from quadruped_jax.gait import ADVANCED_TROT
 
     params = a1_params()
     config = LocomotionConfig(

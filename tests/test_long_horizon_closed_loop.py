@@ -15,13 +15,13 @@ motion, which is what the force schedule exists for.
 import jax
 import numpy as np
 
-from quadruped_tpu.control import swing
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.control.locomotion import LocomotionConfig
-from quadruped_tpu.control.mpc import MpcConfig, long_horizon_config
-from quadruped_tpu.gait import ADVANCED_TROT
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim.rollout import rollout
+from quadruped_jax.control import swing
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.control.locomotion import LocomotionConfig
+from quadruped_jax.control.mpc import MpcConfig, long_horizon_config
+from quadruped_jax.gait import ADVANCED_TROT
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim.rollout import rollout
 
 
 def run(mpc_cfg, steps=2000):
@@ -62,11 +62,11 @@ def test_h16_preview_transition_beats_h10():
     max pitch after the stop 0.184 vs 0.232 rad, min height 0.250 vs
     0.220 m. The gates leave margin on each."""
     import jax.numpy as jnp
-    from quadruped_tpu.control.desired_state import TwistCommand
-    from quadruped_tpu.control.locomotion import (locomotion_init,
+    from quadruped_jax.control.desired_state import TwistCommand
+    from quadruped_jax.control.locomotion import (locomotion_init,
                                                   locomotion_step,
                                                   stance_contact_mask)
-    from quadruped_tpu.sim import srb_sim
+    from quadruped_jax.sim import srb_sim
 
     DT, V, T_STOP, T_END = 0.002, 0.5, 4.0, 6.0
     params = a1_params()
@@ -125,11 +125,11 @@ def test_height_preview_crouch():
     route plan) tracks closed-loop on the SRB sim to ~2 cm during the
     ramps and to ~mm at the crouch plateau."""
     import jax.numpy as jnp
-    from quadruped_tpu.control.desired_state import TwistCommand
-    from quadruped_tpu.control.locomotion import (locomotion_init,
+    from quadruped_jax.control.desired_state import TwistCommand
+    from quadruped_jax.control.locomotion import (locomotion_init,
                                                   locomotion_step,
                                                   stance_contact_mask)
-    from quadruped_tpu.sim import srb_sim
+    from quadruped_jax.sim import srb_sim
 
     DT = 0.002
     params = a1_params()

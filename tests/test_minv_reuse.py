@@ -17,8 +17,8 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.solvers import cone_qp
+from quadruped_jax.robots import a1_params
+from quadruped_jax.solvers import cone_qp
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_golden_parity import build_prob, cadence_case_at  # noqa: E402

@@ -4,13 +4,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import mpc as mpc_mod
-from quadruped_tpu.control.desired_state import (TwistCommand,
+from quadruped_jax.control import mpc as mpc_mod
+from quadruped_jax.control.desired_state import (TwistCommand,
                                                  desired_state_init,
                                                  desired_state_update)
-from quadruped_tpu.gait import ADVANCED_TROT, gait_init, gait_update
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim import srb_sim
+from quadruped_jax.gait import ADVANCED_TROT, gait_init, gait_update
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim import srb_sim
 
 
 def setup(horizon=5):
@@ -76,7 +76,7 @@ def test_yaw_wrap_unwraps_near_pi():
     params, config, gc, gs, obs, des = setup()
     # Robot facing just past +pi/2 with desired yaw slightly negative:
     # the unwrap pushes yaw_des above +pi instead of jumping sign.
-    from quadruped_tpu.core import se3
+    from quadruped_jax.core import se3
 
     rpy = jnp.asarray([0.0, 0.0, 2.9])
     obs2 = obs.replace(base_rpy=rpy, base_quat=se3.rpy_to_quat(rpy))

@@ -2,14 +2,14 @@
 
 Launches two real OS processes (tests/mp_worker.py), each owning 4 virtual
 CPU devices and HALF the scenario batch; they bootstrap through
-`quadruped_tpu.distributed.runtime.initialize_from_env`, assemble a global
+`quadruped_jax.distributed.runtime.initialize_from_env`, assemble a global
 8-device (dp=4, sp=2) mesh, and run the psum-reducing sharded MPC solve.
 The stitched multi-process result must match the single-process solve of
 the same batch — the cross-process analogue of
 tests/test_distributed.py::test_sharded_matches_unsharded, exercising the
 actual multi-host code path (coordination service, cross-process
-collectives, host-local <-> global array plumbing) that a TPU pod uses
-over DCN + ICI.
+collectives, host-local <-> global array plumbing) that a multi-host GPU
+job uses over NCCL.
 """
 
 import os

@@ -11,7 +11,7 @@ import time
 import numpy as np
 import pytest
 
-from quadruped_tpu.runtime import RobotBridge, LoopTimer, native_available
+from quadruped_jax.runtime import RobotBridge, LoopTimer, native_available
 
 pytestmark = pytest.mark.skipif(not native_available(),
                                 reason="native bridge not built")
@@ -89,7 +89,7 @@ def test_loop_timer_rate_and_jitter():
 
 
 def test_fleet_gather_and_fanout():
-    from quadruped_tpu.runtime import FleetBridge
+    from quadruped_jax.runtime import FleetBridge
 
     n = 3
     base_state, base_cmd = 39021, 39031

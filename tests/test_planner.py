@@ -2,10 +2,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.gait import TROT, gait_init
-from quadruped_tpu.gait.scheduler import LegState
-from quadruped_tpu.planner import com_adjuster, pose_planner, foot_stepper
-from quadruped_tpu.robots import a1_params
+from quadruped_jax.gait import TROT, gait_init
+from quadruped_jax.gait.scheduler import LegState
+from quadruped_jax.planner import com_adjuster, pose_planner, foot_stepper
+from quadruped_jax.robots import a1_params
 
 
 FEET = jnp.asarray([[0.17, -0.13, -0.3], [0.17, 0.13, -0.3],
@@ -98,7 +98,7 @@ def test_stairs_snap():
 def test_plan_step_sequence_clears_gap_field():
     """Multi-step lookahead: every planned foothold clears every gap, and
     steps stay forward-moving (StepGenerator queue semantics)."""
-    from quadruped_tpu.planner import foot_stepper as fs
+    from quadruped_jax.planner import foot_stepper as fs
 
     x0 = jnp.asarray([0.35, 0.35, 0.0, 0.0])       # front/back pairs
     gaps = jnp.asarray([0.52, 0.83])
@@ -116,7 +116,7 @@ def test_plan_step_sequence_half_step_fallback():
     """With a gap field too dense for any common offset, the planner takes
     the cross-gait half step (front/rear diagonal split) instead of
     freezing."""
-    from quadruped_tpu.planner import foot_stepper as fs
+    from quadruped_jax.planner import foot_stepper as fs
 
     x0 = jnp.asarray([0.0, 0.0, -0.35, -0.35])
     # Gaps every 12 cm with 8 cm width + 2cm margins: a common offset for
@@ -132,7 +132,7 @@ def test_plan_step_sequence_half_step_fallback():
 def test_stair_coordination_gates_climb():
     """A front foot in the climb window climbs only when its pair is not
     behind and the rear feet are close enough (no body straddling)."""
-    from quadruped_tpu.planner import foot_stepper as fs
+    from quadruped_jax.planner import foot_stepper as fs
 
     stair = fs.StairParams(start_x=jnp.asarray(1.0), width=jnp.asarray(0.2),
                            height=jnp.asarray(0.1), count=jnp.asarray(3))
@@ -158,8 +158,8 @@ def test_pose_planner_sqp_flat_symmetric():
     """The support-polygon SQP (plan_target_pose_sqp) reproduces the
     centroid fixed point on flat symmetric stance: level pose at body
     height over the center (reference qrPosePlanner::Update)."""
-    from quadruped_tpu.planner.pose_planner import plan_target_pose_sqp
-    from quadruped_tpu.robots import a1_params
+    from quadruped_jax.planner.pose_planner import plan_target_pose_sqp
+    from quadruped_jax.robots import a1_params
 
     params = a1_params()
     feet = jnp.asarray([[0.17, -0.13, 0.0], [0.17, 0.13, 0.0],
@@ -178,8 +178,8 @@ def test_pose_planner_sqp_three_contact_constrained():
     """Three-contact plan: the base moves toward the support triangle but
     the leg-length and polygon constraints keep it short of the raw
     centroid; orientation stays near level (the ground anchor)."""
-    from quadruped_tpu.planner.pose_planner import plan_target_pose_sqp
-    from quadruped_tpu.robots import a1_params
+    from quadruped_jax.planner.pose_planner import plan_target_pose_sqp
+    from quadruped_jax.robots import a1_params
 
     params = a1_params()
     feet = jnp.asarray([[0.17, -0.13, 0.0], [0.17, 0.13, 0.0],
@@ -200,7 +200,7 @@ def test_pose_planner_sqp_three_contact_constrained():
     assert abs(p[2] - 0.27) < 0.01
 
     # All virtual legs inside [l_min, l_max] at the planned pose.
-    from quadruped_tpu.core import se3 as se3m
+    from quadruped_jax.core import se3 as se3m
     r = np.asarray(se3m.rpy_to_rotmat(jnp.asarray(p[3:6], jnp.float32)))
     hips = np.asarray(params.hip_offset)
     g = p[None, :3] + hips @ r.T - np.asarray(feet)
@@ -213,8 +213,8 @@ def test_pose_planner_sqp_slope_alignment():
     ground frame and the height is kept above the (tilted) support."""
     import math
 
-    from quadruped_tpu.planner.pose_planner import plan_target_pose_sqp
-    from quadruped_tpu.robots import a1_params
+    from quadruped_jax.planner.pose_planner import plan_target_pose_sqp
+    from quadruped_jax.robots import a1_params
 
     params = a1_params()
     s = math.tan(math.radians(10))

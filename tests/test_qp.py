@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 from scipy import optimize
 
-from quadruped_tpu.solvers import qp
+from quadruped_jax.solvers import qp
 
 
 def random_qp(n, m, seed, eq_rows=0):

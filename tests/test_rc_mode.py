@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control.fsm import FsmState
-from quadruped_tpu.control.rc_mode import (JoyInput, RcMode, rc_init,
+from quadruped_jax.control.fsm import FsmState
+from quadruped_jax.control.rc_mode import (JoyInput, RcMode, rc_init,
                                            rc_update)
 
 H = 0.27
@@ -109,13 +109,13 @@ def test_rc_drives_fsm_sit_down():
     """End-to-end: the RC request channel drives the runner's FSM —
     trot, then BODY_DOWN sits the robot down and EXIT leaves it passive
     (mode sequence -> FSM behavior, VERDICT r2 task 6)."""
-    from quadruped_tpu.control import mpc as mpc_mod, swing as swing_mod
-    from quadruped_tpu.control.locomotion import LocomotionConfig
-    from quadruped_tpu.exec import RunnerConfig, runner_init, runner_step
-    from quadruped_tpu.gait import ADVANCED_TROT
-    from quadruped_tpu.gait.scheduler import stance_contact_mask
-    from quadruped_tpu.robots import a1_params
-    from quadruped_tpu.sim import srb_sim
+    from quadruped_jax.control import mpc as mpc_mod, swing as swing_mod
+    from quadruped_jax.control.locomotion import LocomotionConfig
+    from quadruped_jax.exec import RunnerConfig, runner_init, runner_step
+    from quadruped_jax.gait import ADVANCED_TROT
+    from quadruped_jax.gait.scheduler import stance_contact_mask
+    from quadruped_jax.robots import a1_params
+    from quadruped_jax.sim import srb_sim
 
     params = a1_params()
     config = RunnerConfig(locomotion=LocomotionConfig(
@@ -178,14 +178,14 @@ def test_rc_gait_pulse_triggers_transition():
     locomotion controller's transition engine consumes: trot -> decel ->
     stance-hold -> the second gait table (reference GAIT_TRANSITION
     fsmMode end to end through the runner)."""
-    from quadruped_tpu.control import mpc as mpc_mod, swing as swing_mod
-    from quadruped_tpu.control.gait_transition import TransitionPhase
-    from quadruped_tpu.control.locomotion import LocomotionConfig
-    from quadruped_tpu.exec import RunnerConfig, runner_init, runner_step
-    from quadruped_tpu.gait import ADVANCED_TROT, TROT
-    from quadruped_tpu.gait.scheduler import stance_contact_mask
-    from quadruped_tpu.robots import a1_params
-    from quadruped_tpu.sim import srb_sim
+    from quadruped_jax.control import mpc as mpc_mod, swing as swing_mod
+    from quadruped_jax.control.gait_transition import TransitionPhase
+    from quadruped_jax.control.locomotion import LocomotionConfig
+    from quadruped_jax.exec import RunnerConfig, runner_init, runner_step
+    from quadruped_jax.gait import ADVANCED_TROT, TROT
+    from quadruped_jax.gait.scheduler import stance_contact_mask
+    from quadruped_jax.robots import a1_params
+    from quadruped_jax.sim import srb_sim
 
     params = a1_params()
     config = RunnerConfig(locomotion=LocomotionConfig(

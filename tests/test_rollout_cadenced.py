@@ -2,12 +2,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import mpc as mpc_mod, swing as swing_mod
-from quadruped_tpu.control.locomotion import LocomotionConfig
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.gait import ADVANCED_TROT
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim.rollout_cadenced import rollout_cadenced
+from quadruped_jax.control import mpc as mpc_mod, swing as swing_mod
+from quadruped_jax.control.locomotion import LocomotionConfig
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.gait import ADVANCED_TROT
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim.rollout_cadenced import rollout_cadenced
 
 
 def test_cadenced_rollout_stable_trot():

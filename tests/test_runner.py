@@ -6,15 +6,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import mpc as mpc_mod, swing as swing_mod
-from quadruped_tpu.control.locomotion import LocomotionConfig
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.control.fsm import FsmState
-from quadruped_tpu.exec import RunnerConfig, runner_init, runner_step
-from quadruped_tpu.gait import ADVANCED_TROT
-from quadruped_tpu.gait.scheduler import stance_contact_mask
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim import srb_sim
+from quadruped_jax.control import mpc as mpc_mod, swing as swing_mod
+from quadruped_jax.control.locomotion import LocomotionConfig
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.control.fsm import FsmState
+from quadruped_jax.exec import RunnerConfig, runner_init, runner_step
+from quadruped_jax.gait import ADVANCED_TROT
+from quadruped_jax.gait.scheduler import stance_contact_mask
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim import srb_sim
 
 
 def test_runner_standup_then_locomotion_ground_truth():

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import mpc as mpc_mod, swing as swing_mod
-from quadruped_tpu.control.locomotion import LocomotionConfig
-from quadruped_tpu.sim.scenario import scenario_grid
-from quadruped_tpu.sim.rollout import rollout
+from quadruped_jax.control import mpc as mpc_mod, swing as swing_mod
+from quadruped_jax.control.locomotion import LocomotionConfig
+from quadruped_jax.sim.scenario import scenario_grid
+from quadruped_jax.sim.rollout import rollout
 
 
 def test_heterogeneous_fleet_rollout():

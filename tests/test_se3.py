@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadruped_tpu.core import se3
+from quadruped_jax.core import se3
 
 
 def random_rpy(n, seed=0):

@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadruped_tpu.distributed import make_mesh
-from quadruped_tpu.distributed.solver_sp import solve_cone_sp
-from quadruped_tpu.dynamics import srb
-from quadruped_tpu.core import se3
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.solvers import condense, cone_qp
+from quadruped_jax.distributed import make_mesh
+from quadruped_jax.distributed.solver_sp import solve_cone_sp
+from quadruped_jax.dynamics import srb
+from quadruped_jax.core import se3
+from quadruped_jax.robots import a1_params
+from quadruped_jax.solvers import condense, cone_qp
 
 H = 10
 

@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.core import se3
-from quadruped_tpu.dynamics import spatial as sp
+from quadruped_jax.core import se3
+from quadruped_jax.dynamics import spatial as sp
 
 
 def rand_rot(seed=0):

@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadruped_tpu.core import splines
+from quadruped_jax.core import splines
 
 
 START = jnp.asarray([0.1, -0.1, -0.28], jnp.float32)

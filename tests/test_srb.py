@@ -3,8 +3,8 @@ import numpy as np
 import pytest
 from scipy.linalg import expm
 
-from quadruped_tpu.dynamics import srb
-from quadruped_tpu.robots import a1_params
+from quadruped_jax.dynamics import srb
+from quadruped_jax.robots import a1_params
 
 
 def make_inputs(seed=0):

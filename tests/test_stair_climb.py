@@ -15,17 +15,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control import stance_force_balance as stance_fb
-from quadruped_tpu.control.desired_state import TwistCommand
-from quadruped_tpu.control.walk_locomotion import (WalkConfig, walk_init,
+from quadruped_jax.control import stance_force_balance as stance_fb
+from quadruped_jax.control.desired_state import TwistCommand
+from quadruped_jax.control.walk_locomotion import (WalkConfig, walk_init,
                                                    walk_step)
-from quadruped_tpu.core import se3
-from quadruped_tpu.dynamics import floating_base as fb
-from quadruped_tpu.gait.scheduler import _config
-from quadruped_tpu.gait.walk import SubLegState
-from quadruped_tpu.planner import foot_stepper
-from quadruped_tpu.robots import a1_params, kinematics
-from quadruped_tpu.sim import terrain, whole_body as wb
+from quadruped_jax.core import se3
+from quadruped_jax.dynamics import floating_base as fb
+from quadruped_jax.gait.scheduler import _config
+from quadruped_jax.gait.walk import SubLegState
+from quadruped_jax.planner import foot_stepper
+from quadruped_jax.robots import a1_params, kinematics
+from quadruped_jax.sim import terrain, whole_body as wb
 
 DT = 0.002
 STEP_HEIGHT = 0.08

@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.utils.trace import save_trace, load_trace, compare_traces
+from quadruped_jax.utils.trace import save_trace, load_trace, compare_traces
 
 
 def test_roundtrip(tmp_path):

@@ -26,7 +26,7 @@ def _free_udp_port():
 import numpy as np
 import pytest
 
-from quadruped_tpu.runtime.bridge import (RobotBridge, STATE_FLOATS,
+from quadruped_jax.runtime.bridge import (RobotBridge, STATE_FLOATS,
                                           native_available)
 
 pytestmark = pytest.mark.skipif(not native_available(),

@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadruped_tpu.robots import a1_params, aliengo_params, lite3_params
-from quadruped_tpu.robots.urdf import load_urdf, robot_params_from_urdf
+from quadruped_jax.robots import a1_params, aliengo_params, lite3_params
+from quadruped_jax.robots.urdf import load_urdf, robot_params_from_urdf
 
 REF = "/root/reference/robot_description"
 A1_URDF = os.path.join(REF, "a1_description/urdf/a1.urdf")
@@ -91,7 +91,7 @@ def test_lite3_deeprobotics_convention():
 
 @needs_ref
 def test_urdf_params_build_whole_body_model():
-    from quadruped_tpu.dynamics import floating_base as fb
+    from quadruped_jax.dynamics import floating_base as fb
 
     p = robot_params_from_urdf(A1_URDF, template=a1_params())
     model = fb.build_model(p)
@@ -106,9 +106,9 @@ def test_urdf_params_build_whole_body_model():
 @needs_ref
 def test_urdf_params_run_mpc_step():
     """URDF-derived params drive the same MPC solve path as the factories."""
-    from quadruped_tpu.core import se3
-    from quadruped_tpu.dynamics import srb
-    from quadruped_tpu.solvers import condense, cone_qp
+    from quadruped_jax.core import se3
+    from quadruped_jax.dynamics import srb
+    from quadruped_jax.solvers import condense, cone_qp
 
     p = robot_params_from_urdf(A1_URDF, template=a1_params())
     rpy = jnp.zeros((1, 3))

@@ -6,16 +6,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.utils import viz3d
+from quadruped_jax.robots import a1_params
+from quadruped_jax.utils import viz3d
 
 
 def make_trace(steps=40):
     """A short whole-body stand trace with real poses."""
-    from quadruped_tpu.control.types import HybridCommand
-    from quadruped_tpu.core import se3
-    from quadruped_tpu.dynamics import floating_base as fb
-    from quadruped_tpu.sim import whole_body as wb
+    from quadruped_jax.control.types import HybridCommand
+    from quadruped_jax.core import se3
+    from quadruped_jax.dynamics import floating_base as fb
+    from quadruped_jax.sim import whole_body as wb
 
     params = a1_params()
     model = fb.build_model(params)

@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.gait import WALK, LegState
-from quadruped_tpu.gait.walk import (SubLegState, WalkGaitState,
+from quadruped_jax.gait import WALK, LegState
+from quadruped_jax.gait.walk import (SubLegState, WalkGaitState,
                                      walk_gait_init, walk_gait_update,
                                      load_ratios)
 
@@ -106,8 +106,8 @@ def test_early_contact_overrides_load_ratio():
     """A leg detected EARLY_CONTACT during TRUE_SWING becomes a support leg
     with a tiny force budget (UpdateFRatio detected branch)."""
     import jax.numpy as jnp
-    from quadruped_tpu.gait import walk as walk_mod
-    from quadruped_tpu.gait.scheduler import LegState, WALK
+    from quadruped_jax.gait import walk as walk_mod
+    from quadruped_jax.gait.scheduler import LegState, WALK
 
     config = WALK()
     state = walk_mod.walk_gait_init(config)

@@ -22,8 +22,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.solvers import cone_qp
+from quadruped_jax.robots import a1_params
+from quadruped_jax.solvers import cone_qp
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_golden_parity import build_prob, cadence_case_at  # noqa: E402
@@ -80,10 +80,10 @@ def test_no_false_trigger():
 def test_mpc_step_carries_pin_state():
     """The closed-loop driver threads warm_pinned through MpcState and
     still runs (smoke: one cadence of mpc_step with the shift enabled)."""
-    from quadruped_tpu.control import mpc as mpc_mod
-    from quadruped_tpu.control.desired_state import desired_state_init
-    from quadruped_tpu.gait import ADVANCED_TROT, gait_init, gait_update
-    from quadruped_tpu.sim import srb_sim
+    from quadruped_jax.control import mpc as mpc_mod
+    from quadruped_jax.control.desired_state import desired_state_init
+    from quadruped_jax.gait import ADVANCED_TROT, gait_init, gait_update
+    from quadruped_jax.sim import srb_sim
 
     params = a1_params()
     config = mpc_mod.MpcConfig(horizon=10, qp_iters=24, qp_cold_iters=60,

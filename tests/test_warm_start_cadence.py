@@ -14,11 +14,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control.mpc import MpcConfig
-from quadruped_tpu.core import se3
-from quadruped_tpu.dynamics import srb
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.solvers import condense, cone_qp
+from quadruped_jax.control.mpc import MpcConfig
+from quadruped_jax.core import se3
+from quadruped_jax.dynamics import srb
+from quadruped_jax.robots import a1_params
+from quadruped_jax.solvers import condense, cone_qp
 
 H = 10
 DT = 0.03

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.control.types import HybridCommand
-from quadruped_tpu.dynamics import floating_base as fb
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.sim import whole_body as wb
+from quadruped_jax.control.types import HybridCommand
+from quadruped_jax.dynamics import floating_base as fb
+from quadruped_jax.robots import a1_params
+from quadruped_jax.sim import whole_body as wb
 
 
 def test_batched_whole_body_settle():

@@ -3,11 +3,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadruped_tpu.dynamics import floating_base as fb
-from quadruped_tpu.robots import a1_params
-from quadruped_tpu.control.types import HybridCommand
-from quadruped_tpu.sim import whole_body as wb
-from quadruped_tpu.sim import terrain
+from quadruped_jax.dynamics import floating_base as fb
+from quadruped_jax.robots import a1_params
+from quadruped_jax.control.types import HybridCommand
+from quadruped_jax.sim import whole_body as wb
+from quadruped_jax.sim import terrain
 
 
 @pytest.fixture(scope="module")
@@ -75,7 +75,7 @@ def test_slope_contact(setup):
     assert np.asarray(flags)[-1].sum() >= 2
     assert 0.1 < h[-1] < 0.4
     assert abs(h[-1] - h[-100]) < 0.02
-    from quadruped_tpu.core import se3
+    from quadruped_jax.core import se3
     rpy = np.asarray(se3.quat_to_rpy(state.fb.quat))
     assert abs(rpy[0]) < 0.5 and abs(rpy[1]) < 0.5
 
@@ -94,7 +94,7 @@ def test_momentum_conservation_airborne(setup):
     def momentum(s):
         """Angular momentum about the total CoM, world frame — the quantity
         gravity cannot change."""
-        from quadruped_tpu.core import se3
+        from quadruped_jax.core import se3
 
         h = fb.mass_matrix(model, s.fb.q)
         vgen = jnp.concatenate([s.fb.omega_body, s.fb.vel_body, s.fb.dq])

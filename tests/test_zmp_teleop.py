@@ -1,9 +1,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_tpu.estimation.zmp import compute_zmp, support_margin
-from quadruped_tpu.control.teleop import step_trace, apply_key
-from quadruped_tpu.control.desired_state import TwistCommand
+from quadruped_jax.estimation.zmp import compute_zmp, support_margin
+from quadruped_jax.control.teleop import step_trace, apply_key
+from quadruped_jax.control.desired_state import TwistCommand
 
 
 def test_zmp_static_equals_com():
@@ -48,8 +48,8 @@ def test_step_trace_and_keys():
 def test_keyboard_to_rc_joy():
     """Keyboard -> JoyInput -> RC machine: 'k' starts locomotion, wasd
     move the sticks, 'l' stops (teleop.joy_from_key + rc_mode)."""
-    from quadruped_tpu.control.rc_mode import RcMode, rc_init, rc_update
-    from quadruped_tpu.control.teleop import joy_from_key
+    from quadruped_jax.control.rc_mode import RcMode, rc_init, rc_update
+    from quadruped_jax.control.teleop import joy_from_key
 
     st = rc_init()
     sticks = (0.0, 0.0, 0.0)
